@@ -1,0 +1,382 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch/CUDA port (halo2_lib_tpu_torch) once on one NVIDIA card.
+
+    python3 chip_smoke.py [--ptxas]
+
+(--ptxas prints each kernel's registers and spills from nvcc.) Phases, each
+printing its own lines; any failure raises and exits non-zero:
+
+1. build   - compile the CUDA kernels from halo2_lib_tpu_torch/csrc (nvcc).
+2. kernels - every kernel against its plain PyTorch version on the card, at a
+             ragged size, bit for bit.
+3. k=9     - keygen + create_proof of the golden circuit; the vk and proof
+             bytes must equal the JAX package's goldens in
+             tests/data/torch_goldens/. Its domains (2^9, 2^11) take the
+             radix-2 NTT (ntt_butterfly).
+4. k=15    - the main path at the ECDSA bench size: keygen -> create_proof ->
+             verify_proof of the slice circuit (4 advice + 1 lookup column,
+             every column 2^15 rows), with a tampered proof rejected and the
+             proof's SHA-256 held against the JAX digest. Its domains (2^15,
+             2^17) take the four-step NTT (colntt).
+             Kernel launch counts are reset just before phases 3 and 4 and
+             read just after each; every kernel must have launched in the
+             phase whose path runs it.
+5. timing  - every kernel again, at the largest shapes the main path gave it:
+             kernel time, plain version time and the bound, as one JSON line.
+
+The last line is {"ok": true, "device": {...}}. Without a CUDA device the
+script exits non-zero and prints no result.
+"""
+
+from __future__ import annotations
+
+import hashlib
+import json
+import os
+import subprocess
+import sys
+import time
+
+HERE = os.path.dirname(os.path.abspath(__file__))
+
+# H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, and the 32-bit scalar
+# rate outside the tensor cores (the 67 TFLOP/s float32 line, also used for
+# 32-bit integer multiply-adds: a lower bound on their time).
+PEAK_BYTES = 3.35e12
+PEAK_OPS32 = 67e12
+# 32-bit operations of one Montgomery product (CIOS, 8 x 32-bit words):
+# 136 partial products, each a low and a high multiply-add.
+MM_OPS = 2 * 136
+SOURCES = {
+    "mont_mul": ("csrc/field_kernels.cu", "halo2_lib_tpu/ops/pallas_field.py:300"),
+    "field_add": ("csrc/field_kernels.cu", "halo2_lib_tpu/ops/pallas_field.py:817"),
+    "field_sub": ("csrc/field_kernels.cu", "halo2_lib_tpu/ops/pallas_field.py:822"),
+    "fermat_inv": ("csrc/fermat_kernel.cu", "halo2_lib_tpu/ops/pallas_field.py:755"),
+    "ntt_butterfly": ("csrc/ntt_kernels.cu", "halo2_lib_tpu/ops/pallas_field.py:708"),
+    "colntt": ("csrc/ntt_kernels.cu", "halo2_lib_tpu/ops/ntt4.py:67"),
+    "ec_add": ("csrc/ec_kernels.cu", "halo2_lib_tpu/ops/pallas_field.py:304"),
+    "ec_double": ("csrc/ec_kernels.cu", "halo2_lib_tpu/ops/pallas_field.py:448"),
+    "bucket_scan": ("csrc/ec_kernels.cu", "halo2_lib_tpu/ops/pallas_field.py:620"),
+}
+
+
+def log(msg: str) -> None:
+    print(msg, flush=True)
+
+
+def rand_limbs(gen, shape, torch, p: int):
+    """Random canonical field elements below p (limb-major int32)."""
+    x = torch.randint(0, 1 << 16, shape, generator=gen, dtype=torch.int32, device="cuda")
+    x[..., 15, :] %= p >> 240  # top limb below p's: value < p
+    return x
+
+
+def main() -> None:
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        sys.exit(2)
+    sys.path.insert(0, HERE)
+    import numpy as np
+
+    from halo2_lib_tpu_torch.backend.keygen import keygen
+    from halo2_lib_tpu_torch.backend.kzg import ParamsKZG
+    from halo2_lib_tpu_torch.backend.prover import create_proof
+    from halo2_lib_tpu_torch.backend.verifier import verify_proof
+    from halo2_lib_tpu_torch.ops import cuda_field as cf
+    from halo2_lib_tpu_torch.utils.fields import FQ_BN254, FR_BN254
+    from halo2_lib_tpu_torch.utils.testing import golden_circuit, slice_circuit
+
+    dev = torch.device("cuda")
+    P = {cf.FR: FR_BN254.p, cf.FQ: FQ_BN254.p}
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)
+
+    # --- 1. build ---------------------------------------------------------------
+    t = time.time()
+    cf.build(verbose="--ptxas" in sys.argv)
+    log(f"[build] kernels built in {time.time() - t:.2f}s; load {cf.load():.3f}s")
+
+    # --- kernel calls on given inputs (kernel and plain) -------------------------
+    def make_inputs(name: str, spec):
+        """Random inputs for kernel `name` at shapes `spec` (LARGEST's
+        shapes)."""
+        if name in ("mont_mul", "field_add", "field_sub"):
+            (sa, sb), fid = spec, cf.FR
+            return fid, (rand_limbs(gen, sa, torch, P[fid]), rand_limbs(gen, sb, torch, P[fid]))
+        if name == "fermat_inv":
+            (sa,) = spec
+            return cf.FR, (rand_limbs(gen, sa, torch, P[cf.FR]),)
+        if name == "ntt_butterfly":
+            sa, sw = spec
+            a = rand_limbs(gen, sa, torch, P[cf.FR])
+            return cf.FR, (a, rand_limbs(gen, sa, torch, P[cf.FR]), rand_limbs(gen, sw, torch, P[cf.FR]))
+        if name == "colntt":
+            (L, A, _, B), with_mid = spec
+            x = rand_limbs(gen, (L, A, 16, B), torch, P[cf.FR])
+            tw = rand_limbs(gen, (16, A // 2), torch, P[cf.FR])
+            mid = rand_limbs(gen, (A, 16, B), torch, P[cf.FR]) if with_mid else None
+            return cf.FR, (x, tw, mid)
+        if name in ("ec_add", "ec_double"):
+            (shape,) = spec
+            n = 6 if name == "ec_add" else 3
+            pts = [rand_limbs(gen, shape, torch, P[cf.FQ]) for _ in range(n)]
+            # exercise the special cases: identities, P + P, P + (-P)
+            if name == "ec_add":
+                B = shape[-1]
+                pts[2][..., : B // 8] = 0  # P1 = O
+                pts[5][..., B // 8 : B // 4] = 0  # P2 = O
+                for i in range(3):  # P2 = P1
+                    pts[3 + i][..., B // 4 : B // 2] = pts[i][..., B // 4 : B // 2]
+                neg = cf.field_sub_plain(cf.FQ, torch.zeros_like(pts[1]), pts[1])
+                pts[3][..., B // 2 : 5 * B // 8] = pts[0][..., B // 2 : 5 * B // 8]
+                pts[4][..., B // 2 : 5 * B // 8] = neg[..., B // 2 : 5 * B // 8]
+                pts[5][..., B // 2 : 5 * B // 8] = pts[2][..., B // 2 : 5 * B // 8]
+            return cf.FQ, (tuple(pts[:3]), tuple(pts[3:])) if name == "ec_add" else (tuple(pts),)
+        if name == "bucket_scan":
+            shape, distinct = spec
+            Wb, R, _, CL = shape
+            x = rand_limbs(gen, (Wb, R, 16, CL), torch, P[cf.FQ])
+            y = rand_limbs(gen, (Wb, R, 16, CL), torch, P[cf.FQ])
+            axy = torch.cat(
+                [cf_pack(x, torch), cf_pack(y, torch)], dim=2
+            )  # [Wb, R, 16, CL]
+            dead = torch.rand((Wb, R, 1, CL), generator=gen, device="cuda") < 0.05
+            axy = torch.where(dead, torch.zeros_like(axy), axy)
+            start = (torch.rand((Wb, R, CL), generator=gen, device="cuda") < 1 / 16).to(torch.int32)
+            return cf.FQ, (axy, start, bool(distinct))
+        raise KeyError(name)
+
+    def cf_pack(x, torch):
+        v = x[..., :8, :].to(torch.int64) | (x[..., 8:, :].to(torch.int64) << 16)
+        return torch.where(v >= 1 << 31, v - (1 << 32), v).to(torch.int32)
+
+    def run(name, fid, args, plain: bool):
+        if name in ("mont_mul", "field_add", "field_sub"):
+            fn = getattr(cf, f"{name}_plain" if plain else name)
+            return (fn(fid, *args),)
+        if name == "fermat_inv":
+            return ((cf.fermat_inv_plain if plain else cf.fermat_inv)(fid, *args),)
+        if name == "ntt_butterfly":
+            return (cf.ntt_butterfly_plain if plain else cf.ntt_butterfly)(fid, *args)
+        if name == "colntt":
+            return ((cf.colntt_plain if plain else cf.colntt)(fid, *args),)
+        if name == "ec_add":
+            return (cf.ec_add_plain if plain else cf.ec_add)(*args)
+        if name == "ec_double":
+            return (cf.ec_double_plain if plain else cf.ec_double)(*args)
+        if name == "bucket_scan":
+            return ((cf.bucket_scan_plain if plain else cf.bucket_scan)(*args),)
+        raise KeyError(name)
+
+    def max_err(a, b) -> int:
+        return max(int((x.to(torch.int64) - y.to(torch.int64)).abs().max()) if x.numel() else 0
+                   for x, y in zip(a, b))
+
+    def check(name, spec):
+        fid, args = make_inputs(name, spec)
+        got = run(name, fid, args, plain=False)
+        torch.cuda.synchronize()
+        want = run(name, fid, args, plain=True)
+        torch.cuda.synchronize()
+        err = max_err(got, want)
+        if err != 0:
+            raise AssertionError(f"kernel {name} disagrees with its plain version: max |diff| {err}")
+        return fid, args, err
+
+    # --- 2. kernel checks at ragged sizes -------------------------------------------
+    ragged = {
+        "mont_mul": ((3, 16, 1000), (16, 1)),
+        "field_add": ((3, 16, 1000), (3, 16, 1000)),
+        "field_sub": ((3, 16, 1000), (16, 1000)),
+        "fermat_inv": ((5, 16, 3),),
+        "ntt_butterfly": ((3, 16, 777), (16, 777)),
+        "colntt": ((3, 128, 16, 77), True),
+        "ec_add": ((2, 16, 1000),),
+        "ec_double": ((2, 16, 1000),),
+        "bucket_scan": ((6, 5, 16, 33), False),
+    }
+    for name, spec in ragged.items():
+        check(name, spec)
+        log(f"[kernels] {name} at {spec}: kernel == plain (max |diff| 0)")
+    check("bucket_scan", ((6, 5, 16, 33), True))
+    log("[kernels] bucket_scan (distinct) at (6, 5, 16, 33): kernel == plain (max |diff| 0)")
+    for spec in (((2, 2, 16, 1000), True), ((1, 8, 16, 333), False), ((5, 32, 16, 1), False)):
+        check("colntt", spec)
+        log(f"[kernels] colntt at {spec}: kernel == plain (max |diff| 0)")
+
+    # --- 3. k=9 parity with the JAX goldens ---------------------------------------------
+    t = time.time()
+    gold = np.load(os.path.join(HERE, "tests", "data", "torch_goldens", "golden_k9.npz"))
+    params9 = ParamsKZG.read(os.path.join(HERE, "params", "kzg_bn254_9.srs"), device=dev)
+    torch.cuda.synchronize()
+    cf.reset_launches()
+    pk9 = keygen(params9, golden_circuit(), device=dev)
+    proof9 = create_proof(params9, pk9, golden_circuit(), seed=0, device=dev)
+    torch.cuda.synchronize()
+    launches9, largest9 = dict(cf.LAUNCHES), dict(cf.LARGEST)
+    if pk9.vk.to_bytes() != bytes(gold["vk"]):
+        raise AssertionError("k=9 vk bytes differ from the JAX golden")
+    if proof9 != bytes(gold["proof"]):
+        raise AssertionError("k=9 proof bytes differ from the JAX golden")
+    if not verify_proof(params9, pk9.vk, proof9):
+        raise AssertionError("k=9 proof does not verify")
+    log(f"[k=9] vk and proof byte-identical to the JAX goldens ({len(proof9)} bytes), "
+        f"verifies; {time.time() - t:.2f}s")
+
+    # --- 4. k=15 main path ------------------------------------------------------------------
+    t = time.time()
+    params = ParamsKZG.read(os.path.join(HERE, "params", "kzg_bn254_15.srs"), device=dev)
+    t_read = time.time() - t
+    t = time.time()
+    builder = slice_circuit()
+    cp = builder.config_params
+    t_wit = time.time() - t
+    log(f"[k=15] SRS read {t_read:.2f}s; witness {t_wit:.2f}s; columns: advice "
+        f"{cp.num_advice_per_phase}, lookup {cp.num_lookup_advice_per_phase}, "
+        f"fixed {cp.num_fixed}, lookup_bits {cp.lookup_bits}")
+    torch.cuda.synchronize()
+    cf.reset_launches()
+    kstages, stages = {}, {}
+    t = time.time()
+    pk = keygen(params, builder, device=dev, timings=kstages)
+    torch.cuda.synchronize()
+    t_keygen = time.time() - t
+    t = time.time()
+    proof = create_proof(params, pk, slice_circuit(), seed=0, device=dev, timings=stages)
+    torch.cuda.synchronize()
+    t_prove = time.time() - t
+    launches = dict(cf.LAUNCHES)
+    largest = dict(cf.LARGEST)
+    t = time.time()
+    ok = verify_proof(params, pk.vk, proof)
+    t_verify = time.time() - t
+    if not ok:
+        raise AssertionError("k=15 proof does not verify")
+    bad = bytearray(proof)
+    bad[len(bad) // 2] ^= 1
+    if verify_proof(params, pk.vk, bytes(bad)):
+        raise AssertionError("k=15 tampered proof verifies")
+    digest = hashlib.sha256(proof).hexdigest()
+    ref_path = os.path.join(HERE, "tests", "data", "torch_goldens", "slice_k15.json")
+    with open(ref_path) as f:
+        ref = json.load(f)
+    if digest != ref["proof_sha256"]:
+        raise AssertionError(f"k=15 proof sha256 {digest} != JAX {ref['proof_sha256']}")
+    log(f"[k=15] keygen {t_keygen:.3f}s, create_proof {t_prove:.3f}s, verify_proof "
+        f"{t_verify:.3f}s; proof {len(proof)} bytes, sha256 equals the JAX proof's; "
+        f"tampered proof rejected")
+    log("[k=15] keygen stages (s): " + json.dumps({k: round(v, 4) for k, v in kstages.items()}))
+    log("[k=15] create_proof stages (s): "
+        + json.dumps({k: round(v, 4) for k, v in stages.items()}))
+    log("[k=9] launches: " + json.dumps(launches9))
+    log("[k=15] launches: " + json.dumps(launches))
+    # the radix-2 butterfly serves domains below 2^12, the four-step colntt
+    # those from 2^12 up; every other kernel runs at both sizes
+    missing = [k for k in cf.KERNELS if k != "colntt" and launches9[k] == 0]
+    missing += [k for k in cf.KERNELS if k != "ntt_butterfly" and launches[k] == 0]
+    if missing:
+        raise AssertionError(f"kernels not launched on the main path: {missing}")
+
+    # --- 5. every kernel at its main-path shapes: check and time ----------------------------
+    def time_ms(fn, reps: int) -> float:
+        fn()
+        torch.cuda.synchronize()
+        e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        e0.record()
+        for _ in range(reps):
+            fn()
+        e1.record()
+        torch.cuda.synchronize()
+        return e0.elapsed_time(e1) / reps
+
+    def numel(shape) -> int:
+        out = 1
+        for d in shape:
+            out *= d
+        return out
+
+    def bound(name, spec):
+        """(bound_ms, bound_by): bytes each input read once and each output
+        written once, against operations at the 32-bit peak."""
+        if name in ("mont_mul", "field_add", "field_sub"):
+            sa, sb = spec
+            n = max(numel(sa), numel(sb)) // 16
+            nbytes = 4 * (numel(sa) + numel(sb)) + 64 * n
+            ops = n * (MM_OPS if name == "mont_mul" else 2 * 16)
+        elif name == "fermat_inv":
+            n = numel(spec[0]) // 16
+            nbytes, ops = 128 * n, n * 330 * MM_OPS
+        elif name == "ntt_butterfly":
+            sa, sw = spec
+            n = numel(sa) // 16
+            nbytes = 4 * (2 * numel(sa) + numel(sw)) + 128 * n
+            ops = n * (MM_OPS + 3 * 16)
+        elif name == "colntt":
+            (L, A, _, B), with_mid = spec
+            n = L * A * B
+            nbytes = 64 * n * (3 if with_mid else 2) + 32 * A
+            # (A/2) log2(A) butterflies per column, then the mid product
+            ops = n * (A.bit_length() - 1) // 2 * (MM_OPS + 3 * 16) + (n * MM_OPS if with_mid else 0)
+        elif name == "ec_add":
+            n = numel(spec[0]) // 16
+            nbytes, ops = 9 * 64 * n, n * 23 * MM_OPS
+        elif name == "ec_double":
+            n = numel(spec[0]) // 16
+            nbytes, ops = 6 * 64 * n, n * 7 * MM_OPS
+        else:
+            (Wb, R, _, CL), distinct = spec
+            n = Wb * R * CL
+            nbytes = n * (64 + 4 + 192)
+            ops = n * (11 if distinct else 17) * MM_OPS
+        t_bytes, t_ops = nbytes / PEAK_BYTES * 1e3, ops / PEAK_OPS32 * 1e3
+        return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+    rows = []
+    for name in cf.KERNELS:
+        spec = (largest.get(name) or largest9[name])[1]
+        fid, args, err = check(name, spec)
+        reps = 3 if name == "bucket_scan" else 10
+        ms = time_ms(lambda: run(name, fid, args, plain=False), reps)
+        plain_ms = time_ms(lambda: run(name, fid, args, plain=True), 1)
+        bms, by = bound(name, spec)
+        src, rep = SOURCES[name]
+        rows.append({
+            "name": name,
+            "route": "cuda",
+            "source": f"halo2_lib_tpu_torch/{src}",
+            "replaces": rep,
+            # the main path's launches: the k=9 and the k=15 run
+            "launches": launches9[name] + launches[name],
+            "launches_k9": launches9[name],
+            "launches_k15": launches[name],
+            "max_abs_err": err,
+            "ms": round(ms, 6),
+            "plain_ms": round(plain_ms, 6),
+            "bound_ms": round(bms, 6),
+            "bound_by": by,
+            "library_ms": None,
+            "shape": [list(s) if isinstance(s, tuple) else s for s in spec],
+        })
+        log(f"[timing] {name} at {spec}: {ms:.4f} ms (plain {plain_ms:.3f} ms, "
+            f"bound {bms:.4f} ms by {by}), kernel == plain")
+
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60,
+    ).stdout.strip().splitlines()
+    log(smi[0] if smi else "nvidia-smi: no output")
+    log(json.dumps({"kernels": rows}))
+    print(json.dumps({
+        "ok": True,
+        "device": {
+            "platform": "gpu",
+            "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count(),
+        },
+    }), flush=True)
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,274 @@
+"""Freeze the JAX package's keys and proofs for the port's parity tests.
+
+One-off script: it runs the JAX reference on the CPU and writes, next to
+itself,
+
+* ``golden_k9.npz`` and ``instance_k9.npz``: for the two k=9 circuits of
+  ``halo2_lib_tpu_torch/utils/testing.py``, the verifying key's bytes and
+  ``transcript_repr``, the proving key's host columns, its sigma tensor
+  (``perm_values``) and the proof of seed 0;
+* ``ntt_digests.json``: for log n = 1..10, the SHA-256 of the JAX NTT's
+  forward, inverse, coset-forward and coset-inverse transforms of two
+  columns made by ``ntt_inputs``;
+* ``field_digests.json``: the SHA-256 of the JAX package's batch inversion
+  (``DeviceField.batch_inv``) of the Fr values of ``field_values(11)``;
+* ``ec_digests.json``: the SHA-256 of the JAX package's Jacobian complete
+  add (``DeviceCurve._add_xla``) and double (``_double_xla``) on the points
+  of ``ec_case_points``, every special case of the add included;
+* ``slice_k15.json`` (with ``--k15``): the SHA-256 of the JAX proof of the
+  k=15 slice circuit at seed 0, which ``chip_smoke.py`` compares with.
+
+Run from the repository root:
+
+    JAX_PLATFORMS=cpu python tests/data/torch_goldens/make_goldens.py [--k15] [--ops-only]
+
+The circuits are built here with the JAX eDSL, step for step as the port's
+``utils/testing.py`` builds them with its own copy.
+"""
+
+from __future__ import annotations
+
+import hashlib
+import json
+import os
+import random
+import sys
+import time
+
+import numpy as np
+
+HERE = os.path.dirname(os.path.abspath(__file__))
+ROOT = os.path.dirname(os.path.dirname(os.path.dirname(HERE)))
+sys.path.insert(0, ROOT)
+
+from halo2_lib_tpu.backend.keygen import keygen  # noqa: E402
+from halo2_lib_tpu.backend.kzg import ParamsKZG  # noqa: E402
+from halo2_lib_tpu.backend.prover import create_proof  # noqa: E402
+from halo2_lib_tpu.backend.verifier import verify_proof  # noqa: E402
+from halo2_lib_tpu.core.cells import Constant, Existing  # noqa: E402
+from halo2_lib_tpu.gates.circuit import BaseCircuitBuilder, CircuitBuilderStage  # noqa: E402
+from halo2_lib_tpu.gates.flex_gate import GateChip  # noqa: E402
+from halo2_lib_tpu.utils.fields import FR_BN254  # noqa: E402
+
+
+def golden_circuit(x_val: int = 12345, k: int = 9):
+    builder = BaseCircuitBuilder.from_stage(CircuitBuilderStage.MOCK).use_k(k)
+    builder.set_lookup_bits(8)
+    rc = builder.range_chip()
+    gate = rc.gate
+    ctx = builder.main(0)
+    x = ctx.load_witness(x_val)
+    y = gate.mul(ctx, Existing(x), Existing(x))
+    z = gate.add(ctx, Existing(y), Constant(7))
+    for _ in range(10):
+        z = gate.mul_add(ctx, Existing(z), Existing(x), Constant(3))
+    rc.range_check(ctx, z, 240)
+    rc.check_less_than(ctx, Existing(x), Constant(1 << 40), 48)
+    builder.calculate_params(minimum_rows=9)
+    p = builder.config_params
+    p.num_advice_per_phase[0] = max(p.num_advice_per_phase[0], 2)
+    p.num_lookup_advice_per_phase[0] = max(p.num_lookup_advice_per_phase[0], 1)
+    return builder
+
+
+def instance_circuit(xv: int = 1234567, yv: int = 89, k: int = 9):
+    builder = BaseCircuitBuilder.from_stage(CircuitBuilderStage.MOCK).use_k(k)
+    builder.set_instance_columns(1)
+    gate = GateChip(FR_BN254)
+    ctx = builder.main(0)
+    x = ctx.load_witness(xv)
+    y = ctx.load_witness(yv)
+    z = gate.mul(ctx, Existing(x), Existing(y))
+    builder.assigned_instances[0].extend([x, z])
+    builder.calculate_params(minimum_rows=9)
+    builder.config_params.num_advice_per_phase[0] = max(
+        builder.config_params.num_advice_per_phase[0], 1
+    )
+    return builder, [[xv, xv * yv % FR_BN254.p]]
+
+
+def slice_circuit(k: int = 15, iters: int = 7000, seed: int = 0):
+    rng = random.Random(repr(("slice-circuit", seed)))
+    lookup_bits = k - 1
+    builder = BaseCircuitBuilder.from_stage(CircuitBuilderStage.MOCK).use_k(k)
+    builder.set_lookup_bits(lookup_bits)
+    rc = builder.range_chip()
+    gate = rc.gate
+    ctx = builder.main(0)
+    z = ctx.load_witness(rng.randrange(1 << 56))
+    for _ in range(iters):
+        a = ctx.load_witness(rng.randrange(1 << 56))
+        rc.range_check(ctx, a, 4 * lookup_bits)
+        z = gate.mul_add(ctx, Existing(z), Existing(a), Constant(3))
+    builder.calculate_params(minimum_rows=9)
+    return builder
+
+
+def ntt_inputs(log_n: int, cols: int = 2) -> list[list[int]]:
+    """`cols` columns of 2^log_n canonical Fr elements from a numpy seed
+    (tests/test_torch_ntt.py makes the same ones)."""
+    rng = np.random.default_rng(1000 + log_n)
+    words = rng.integers(0, 1 << 63, size=(cols, 1 << log_n, 4), dtype=np.int64)
+    p = FR_BN254.p
+    return [
+        [sum(int(w) << (63 * i) for i, w in enumerate(el)) % p for el in col] for col in words
+    ]
+
+
+def freeze_ntt() -> None:
+    import jax.numpy as jnp
+
+    from halo2_lib_tpu.ops.limbs import DeviceField
+    from halo2_lib_tpu.ops.ntt import NTT, CosetNTT
+
+    df = DeviceField(FR_BN254)
+    out = {}
+    for log_n in range(1, 11):
+        cols = ntt_inputs(log_n)
+        x = jnp.stack([df.pack(c) for c in cols])  # [2, 16, n] Montgomery
+        ntt, coset = NTT(df, log_n), CosetNTT(df, log_n, 7)
+        res = {
+            "forward": ntt.forward(x),
+            "inverse": ntt.inverse(x),
+            "coset_forward": coset.forward(x),
+            "coset_inverse": coset.inverse(x),
+        }
+        out[str(log_n)] = {
+            k: hashlib.sha256(np.asarray(v).astype("<u4").tobytes()).hexdigest()
+            for k, v in res.items()
+        }
+    with open(os.path.join(HERE, "ntt_digests.json"), "w") as f:
+        json.dump(out, f, indent=1)
+        f.write("\n")
+    print("ntt_digests: log n = 1..10", flush=True)
+
+
+def field_values(seed: int, lanes: int = 72) -> list[int]:
+    """64 random canonical Fr values, then 0, p-1, R mod p and 1 twice
+    (tests/test_torch_field.py makes the same ones)."""
+    p = FR_BN254.p
+    rng = np.random.default_rng(seed)
+    words = rng.integers(0, 1 << 62, size=(lanes - 8, 5), dtype=np.int64)
+    rand = [sum(int(w) << (62 * i) for i, w in enumerate(row)) % p for row in words]
+    edges = [0, p - 1, (1 << 256) % p, 1]
+    return rand + edges + edges[::-1]
+
+
+def freeze_field() -> None:
+    from halo2_lib_tpu.ops.limbs import DeviceField
+
+    df = DeviceField(FR_BN254)
+    out = df.batch_inv(df.pack(field_values(11)))
+    digest = hashlib.sha256(np.asarray(out).astype("<u4").tobytes()).hexdigest()
+    with open(os.path.join(HERE, "field_digests.json"), "w") as f:
+        json.dump({"batch_inv_fr": digest}, f, indent=1)
+        f.write("\n")
+    print("field_digests", flush=True)
+
+
+def ec_case_points():
+    """(add pairs, double points) from fixed seeds; tests/test_torch_ec.py
+    makes the same ones with the port's copy of utils/curves.py."""
+    from halo2_lib_tpu.utils.curves import BN254_G1
+
+    rng = random.Random(7)
+    pts1 = [BN254_G1.random_point(rng) for _ in range(16)]
+    pts2 = [BN254_G1.random_point(rng) for _ in range(16)]
+    pts1[0] = None  # O + Q
+    pts2[1] = None  # P + O
+    pts1[2] = pts2[2] = None  # O + O
+    pts2[3] = pts1[3]  # P + P: the doubling branch
+    x, y = pts1[4]
+    pts2[4] = (x, BN254_G1.base.p - y)  # P + (-P) = O
+    rng = random.Random(9)
+    dbl = [BN254_G1.random_point(rng) for _ in range(15)] + [None]
+    return pts1, pts2, dbl
+
+
+def freeze_ec() -> None:
+    import jax
+
+    from halo2_lib_tpu.ops.ec_device import DeviceCurve
+    from halo2_lib_tpu.ops.limbs import DeviceField
+    from halo2_lib_tpu.utils.curves import BN254_G1
+
+    dc = DeviceCurve(DeviceField(BN254_G1.base), BN254_G1)
+    pts1, pts2, dbl = ec_case_points()
+    digest = lambda P: hashlib.sha256(np.stack([np.asarray(t) for t in P]).astype("<u4").tobytes()).hexdigest()
+    out = {
+        "add": digest(jax.jit(dc._add_xla)(dc.pack_points(pts1), dc.pack_points(pts2))),
+        "double": digest(jax.jit(dc._double_xla)(dc.pack_points(dbl))),
+    }
+    with open(os.path.join(HERE, "ec_digests.json"), "w") as f:
+        json.dump(out, f, indent=1)
+        f.write("\n")
+    print("ec_digests", flush=True)
+
+
+def limbs16(cols, n: int) -> np.ndarray:
+    """Int columns -> uint16[C, n, 16] little-endian limbs."""
+    out = np.zeros((len(cols), n, 16), dtype=np.uint16)
+    for c, col in enumerate(cols):
+        buf = b"".join(int(v).to_bytes(32, "little") for v in col)
+        out[c, : len(col)] = np.frombuffer(buf, dtype="<u2").reshape(len(col), 16)
+    return out
+
+
+def freeze(name: str, builder, instances, params) -> None:
+    t = time.time()
+    pk = keygen(params, builder)
+    proof = create_proof(params, pk, builder, instances=instances, seed=0)
+    assert verify_proof(params, pk.vk, proof, instances)
+    n = 1 << pk.vk.k
+    d = {
+        "vk": np.frombuffer(pk.vk.to_bytes(), dtype=np.uint8),
+        "transcript_repr": np.frombuffer(
+            pk.vk.transcript_repr().to_bytes(32, "little"), dtype=np.uint8
+        ),
+        "selectors": np.asarray(pk.selectors, dtype=np.uint8).reshape(-1, n),
+        "fixed_cols": limbs16(pk.fixed_cols, n),
+        "dynen_cols": limbs16(pk.dynen_cols, n),
+        "perm_values": np.asarray(pk.perm_values).astype(np.uint16),
+        "proof": np.frombuffer(proof, dtype=np.uint8),
+        "instances": limbs16(instances or [], n),
+    }
+    if pk.table_col is not None:
+        d["table_col"] = limbs16([pk.table_col], n)[0]
+    if pk.q_lookup_col is not None:
+        d["q_lookup_col"] = limbs16([pk.q_lookup_col], n)[0]
+    np.savez_compressed(os.path.join(HERE, f"{name}.npz"), **d)
+    print(f"{name}: proof {len(proof)} bytes, {time.time() - t:.1f}s", flush=True)
+
+
+def main() -> None:
+    freeze_field()
+    freeze_ntt()
+    freeze_ec()
+    if "--ops-only" in sys.argv:
+        return
+    params9 = ParamsKZG.read(os.path.join(ROOT, "params", "kzg_bn254_9.srs"))
+    freeze("golden_k9", golden_circuit(), None, params9)
+    builder, inst = instance_circuit()
+    freeze("instance_k9", builder, inst, params9)
+    if "--k15" in sys.argv:
+        t = time.time()
+        params15 = ParamsKZG.read(os.path.join(ROOT, "params", "kzg_bn254_15.srs"))
+        builder = slice_circuit()
+        pk = keygen(params15, builder)
+        proof = create_proof(params15, pk, builder, seed=0)
+        assert verify_proof(params15, pk.vk, proof)
+        out = {
+            "k": 15,
+            "seed": 0,
+            "proof_sha256": hashlib.sha256(proof).hexdigest(),
+            "proof_bytes": len(proof),
+            "vk_sha256": hashlib.sha256(pk.vk.to_bytes()).hexdigest(),
+        }
+        with open(os.path.join(HERE, "slice_k15.json"), "w") as f:
+            json.dump(out, f, indent=1)
+            f.write("\n")
+        print(f"slice_k15: {out} {time.time() - t:.1f}s", flush=True)
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,119 @@
+"""The port's CUDA kernels against their plain PyTorch versions, on the card.
+
+These tests need an NVIDIA card with nvcc (marker `cuda`); without one they
+skip. On the card: python -m pytest tests/test_torch_cuda.py -q. Every
+comparison is exact (integer limbs, tolerance 0).
+"""
+
+import random
+
+import pytest
+import torch
+
+from halo2_lib_tpu_torch.ops import cuda_field as cf
+from halo2_lib_tpu_torch.ops.ec_device import DeviceCurve, msm_many_device, pack_scalars
+from halo2_lib_tpu_torch.ops.limbs import DeviceField
+from halo2_lib_tpu_torch.utils.curves import BN254_G1
+from halo2_lib_tpu_torch.utils.fields import FQ_BN254, FR_BN254
+
+# One core per test process: the suite runs in parallel workers, and a
+# thread pool per worker would oversubscribe the host.
+torch.set_num_threads(1)
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture(scope="module")
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    cf.load()
+    return torch.device("cuda")
+
+
+def _rand(shape, p, gen, dev):
+    x = torch.randint(0, 1 << 16, shape, generator=gen, dtype=torch.int32).to(dev)
+    x[..., 15, :] %= p >> 240
+    return x
+
+
+@pytest.mark.parametrize("name", ["mont_mul", "field_add", "field_sub"])
+@pytest.mark.parametrize("fid", [cf.FR, cf.FQ])
+def test_field_kernels(dev, name, fid):
+    p = FR_BN254.p if fid == cf.FR else FQ_BN254.p
+    gen = torch.Generator().manual_seed(fid)
+    a, b = _rand((3, 16, 1000), p, gen, dev), _rand((16, 1), p, gen, dev)
+    got = getattr(cf, name)(fid, a, b)
+    assert torch.equal(got, getattr(cf, f"{name}_plain")(fid, a, b))
+
+
+def test_fermat_and_butterfly(dev):
+    gen = torch.Generator().manual_seed(2)
+    a = _rand((5, 16, 3), FR_BN254.p, gen, dev)
+    assert torch.equal(cf.fermat_inv(cf.FR, a), cf.fermat_inv_plain(cf.FR, a))
+    x, y, w = (_rand(s, FR_BN254.p, gen, dev) for s in ((3, 16, 777), (3, 16, 777), (16, 777)))
+    for k, pl in zip(cf.ntt_butterfly(cf.FR, x, y, w), cf.ntt_butterfly_plain(cf.FR, x, y, w)):
+        assert torch.equal(k, pl)
+
+
+@pytest.mark.parametrize("A,with_mid", [(2, True), (8, False), (128, True)])
+def test_colntt(dev, A, with_mid):
+    gen = torch.Generator().manual_seed(A)
+    x = _rand((3, A, 16, 77), FR_BN254.p, gen, dev)
+    tw = _rand((16, A // 2), FR_BN254.p, gen, dev)
+    mid = _rand((A, 16, 77), FR_BN254.p, gen, dev) if with_mid else None
+    assert torch.equal(cf.colntt(cf.FR, x, tw, mid), cf.colntt_plain(cf.FR, x, tw, mid))
+
+
+def test_four_step_ntt_on_the_card_matches_cpu(dev):
+    from halo2_lib_tpu_torch.ops.ntt import FourStepNTT, new_ntt
+
+    df = DeviceField(FR_BN254)
+    gen = torch.Generator().manual_seed(9)
+    x = _rand((2, 16, 1 << 13), FR_BN254.p, gen, "cpu")
+    cpu, card = new_ntt(df, 13, "cpu"), new_ntt(df, 13, dev)
+    assert isinstance(card, FourStepNTT)
+    cf.reset_launches()
+    y = card.forward(x.to(dev))
+    assert torch.equal(y.cpu(), cpu.forward(x))
+    assert torch.equal(card.inverse(y).cpu(), x)
+    assert cf.LAUNCHES["colntt"] == 4 and cf.LAUNCHES["ntt_butterfly"] == 0
+
+
+def test_ec_kernels(dev):
+    rng = random.Random(4)
+    dc = DeviceCurve(DeviceField(BN254_G1.base), BN254_G1)
+    pts = [BN254_G1.random_point(rng) for _ in range(30)] + [None, None]
+    qts = pts[16:] + pts[:16]
+    P, Qp = dc.pack_points(pts, dev), dc.pack_points(qts, dev)
+    for k, pl in zip(cf.ec_add(P, Qp), cf.ec_add_plain(P, Qp)):
+        assert torch.equal(k, pl)
+    for k, pl in zip(cf.ec_double(P), cf.ec_double_plain(P)):
+        assert torch.equal(k, pl)
+
+
+@pytest.mark.parametrize("distinct", [False, True])
+def test_bucket_scan(dev, distinct):
+    gen = torch.Generator().manual_seed(5)
+    x = _rand((4, 7, 16, 33), FQ_BN254.p, gen, dev)
+    axy = (x[:, :, :8].to(torch.int64) | (x[:, :, 8:].to(torch.int64) << 16))
+    axy = torch.where(axy >= 1 << 31, axy - (1 << 32), axy).to(torch.int32)
+    axy = torch.cat([axy, axy.flip(-1)], dim=2).contiguous()
+    start = (torch.rand((4, 7, 33), generator=gen) < 0.2).to(torch.int32).to(dev)
+    got = cf.bucket_scan(axy, start, distinct)
+    assert torch.equal(got, cf.bucket_scan_plain(axy, start, distinct))
+
+
+def test_msm_on_the_card_matches_cpu(dev):
+    rng = random.Random(6)
+    dc = DeviceCurve(DeviceField(BN254_G1.base), BN254_G1)
+    pts = [BN254_G1.random_point(rng) for _ in range(256)]
+    scal = [rng.randrange(BN254_G1.scalar.p) for _ in range(256)]
+    A_cpu = dc.pack_points_affine(pts)
+    digits = pack_scalars(dc, scal, 8)[None]
+    want = dc.unpack_points(msm_many_device(dc, A_cpu, digits, 8))
+    A_dev = tuple(t.to(dev) for t in A_cpu)
+    cf.reset_launches()
+    got = dc.unpack_points(msm_many_device(dc, A_dev, digits.to(dev), 8))
+    assert got == want
+    assert cf.LAUNCHES["bucket_scan"] == 1 and cf.LAUNCHES["ec_double"] > 0

@@ -1,0 +1,49 @@
+"""The port stands alone: it imports neither jax, nor the JAX package, nor
+the native C engine, and runs keygen -> create_proof -> verify_proof with
+jax made unimportable."""
+
+import ast
+import os
+
+from torch_jaxfree import FORBIDDEN, ROOT, jaxfree_instance_run
+
+PORT = os.path.join(ROOT, "halo2_lib_tpu_torch")
+
+
+def _port_files():
+    out = [os.path.join(ROOT, "chip_smoke.py")]
+    for d, _, files in os.walk(PORT):
+        out += [os.path.join(d, f) for f in files if f.endswith(".py")]
+    return sorted(out)
+
+
+def _imports(path):
+    tree = ast.parse(open(path).read(), path)
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for a in node.names:
+                yield a.name
+        elif isinstance(node, ast.ImportFrom) and node.level == 0 and node.module:
+            yield node.module
+
+
+def test_no_forbidden_imports():
+    files = _port_files()
+    assert len(files) > 20
+    bad = [
+        (os.path.relpath(f, ROOT), m)
+        for f in files
+        for m in _imports(f)
+        if m.split(".")[0] in FORBIDDEN
+    ]
+    assert not bad, bad
+
+
+def test_k8_prove_without_jax(tmp_path_factory):
+    """keygen -> create_proof -> verify_proof with jax, the JAX package and
+    the native engine unimportable (the instance-column circuit at k=9,
+    whose bytes test_torch_instances.py holds against the JAX goldens)."""
+    run = jaxfree_instance_run(tmp_path_factory)
+    assert "error" not in run, run.get("error")
+    assert run["verifies"] and not run["verifies_wrong_instances"]
+    assert run["loaded"] == []
