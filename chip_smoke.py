@@ -8,19 +8,28 @@ printing its own lines; any failure raises and exits non-zero:
 
 1. build   - compile the CUDA kernels from halo2_lib_tpu_torch/csrc (nvcc).
 2. kernels - every kernel against its plain PyTorch version on the card, at a
-             ragged size, bit for bit.
+             ragged size, bit for bit (ec_madd with identity accumulators,
+             (0, 0) bases, P + P and P + (-P) lanes, both `distinct` values).
 3. k=9     - keygen + create_proof of the golden circuit; the vk and proof
              bytes must equal the JAX package's goldens in
              tests/data/torch_goldens/. Its domains (2^9, 2^11) take the
-             radix-2 NTT (ntt_butterfly).
-4. k=15    - the main path at the ECDSA bench size: keygen -> create_proof ->
-             verify_proof of the slice circuit (4 advice + 1 lookup column,
-             every column 2^15 rows), with a tampered proof rejected and the
-             proof's SHA-256 held against the JAX digest. Its domains (2^15,
-             2^17) take the four-step NTT (colntt).
-             Kernel launch counts are reset just before phases 3 and 4 and
-             read just after each; every kernel must have launched in the
-             phase whose path runs it.
+             radix-2 NTT (ntt_butterfly), and its commits (m = 2^9 <= 1024)
+             the double-and-add through ec_madd, never bucket_scan. Then one
+             k=9 commit is timed both ways (double-and-add, Pippenger).
+4. k=15    - keygen -> create_proof -> verify_proof of the slice circuit (4
+             advice + 1 lookup column, every column 2^15 rows), with a
+             tampered proof rejected and the proof's SHA-256 held against the
+             JAX digest. Its domains (2^15, 2^17) take the four-step NTT
+             (colntt) and its commits Pippenger (bucket_scan).
+4b. ECDSA  - the main path at full width: the repo's secp256k1 ECDSA-verify
+             circuit (bench.py's, 18 advice + 3 lookup-advice + 1 fixed
+             column at k=15): keygen, then the pinned prover builder's
+             witness and create_proof, then verify_proof and a tampered proof
+             rejected; the proof's and the vk's SHA-256 held against the JAX
+             package's (ecdsa_k15.json).
+             Kernel launch counts are reset just before phases 3, 4 and 4b
+             and read just after each; every kernel must have launched in the
+             phases whose paths run it.
 5. timing  - every kernel again, at the largest shapes the main path gave it:
              kernel time, plain version time and the bound, as one JSON line.
 
@@ -33,6 +42,7 @@ from __future__ import annotations
 import hashlib
 import json
 import os
+import random
 import subprocess
 import sys
 import time
@@ -56,6 +66,7 @@ SOURCES = {
     "colntt": ("csrc/ntt_kernels.cu", "halo2_lib_tpu/ops/ntt4.py:67"),
     "ec_add": ("csrc/ec_kernels.cu", "halo2_lib_tpu/ops/pallas_field.py:304"),
     "ec_double": ("csrc/ec_kernels.cu", "halo2_lib_tpu/ops/pallas_field.py:448"),
+    "ec_madd": ("csrc/ec_kernels.cu", "halo2_lib_tpu/ops/pallas_field.py:430"),
     "bucket_scan": ("csrc/ec_kernels.cu", "halo2_lib_tpu/ops/pallas_field.py:620"),
 }
 
@@ -81,12 +92,19 @@ def main() -> None:
     import numpy as np
 
     from halo2_lib_tpu_torch.backend.keygen import keygen
-    from halo2_lib_tpu_torch.backend.kzg import ParamsKZG
+    from halo2_lib_tpu_torch.backend.kzg import (
+        ParamsKZG, _pack_affine, commit_double_and_add, window_digits,
+    )
     from halo2_lib_tpu_torch.backend.prover import create_proof
     from halo2_lib_tpu_torch.backend.verifier import verify_proof
     from halo2_lib_tpu_torch.ops import cuda_field as cf
+    from halo2_lib_tpu_torch.ops.ec_device import msm_many_device, msm_window_bits
+    from halo2_lib_tpu_torch.ops.limbs import DeviceField
     from halo2_lib_tpu_torch.utils.fields import FQ_BN254, FR_BN254
-    from halo2_lib_tpu_torch.utils.testing import golden_circuit, slice_circuit
+    from halo2_lib_tpu_torch.utils.pinning import pinning_of
+    from halo2_lib_tpu_torch.utils.testing import (
+        ecdsa_circuit, ecdsa_inputs, ecdsa_witness, golden_circuit, slice_circuit,
+    )
 
     dev = torch.device("cuda")
     P = {cf.FR: FR_BN254.p, cf.FQ: FQ_BN254.p}
@@ -134,6 +152,30 @@ def main() -> None:
                 pts[4][..., B // 2 : 5 * B // 8] = neg[..., B // 2 : 5 * B // 8]
                 pts[5][..., B // 2 : 5 * B // 8] = pts[2][..., B // 2 : 5 * B // 8]
             return cf.FQ, (tuple(pts[:3]), tuple(pts[3:])) if name == "ec_add" else (tuple(pts),)
+        if name == "ec_madd":
+            shape, ashape, distinct = spec
+            P1 = [rand_limbs(gen, shape, torch, P[cf.FQ]) for _ in range(3)]
+            A2 = [rand_limbs(gen, ashape, torch, P[cf.FQ]) for _ in range(2)]
+            # the special cases, on lane ranges: accumulator = identity, base =
+            # (0, 0), both, base == accumulator (Z = 1; the doubling branch),
+            # base == -accumulator
+            B = shape[-1]
+            cut = [B * i // 10 for i in range(6)]
+            one = torch.tensor(
+                [((1 << 256) % P[cf.FQ] >> (16 * i)) & 0xFFFF for i in range(16)],
+                dtype=torch.int32, device="cuda",
+            )[:, None]
+            P1[2][..., cut[0] : cut[1]] = 0
+            A2[0][..., cut[1] : cut[3]] = 0
+            A2[1][..., cut[1] : cut[3]] = 0
+            P1[2][..., cut[2] : cut[3]] = 0
+            lanes = slice(cut[3], cut[5])
+            P1[0][..., lanes] = A2[0][..., lanes]
+            P1[1][..., lanes] = A2[1][..., lanes]
+            P1[2][..., lanes] = one
+            neg = cf.field_sub_plain(cf.FQ, torch.zeros_like(A2[1]), A2[1])
+            P1[1][..., cut[4] : cut[5]] = neg[..., cut[4] : cut[5]]
+            return cf.FQ, (tuple(P1), tuple(A2), bool(distinct))
         if name == "bucket_scan":
             shape, distinct = spec
             Wb, R, _, CL = shape
@@ -166,6 +208,8 @@ def main() -> None:
             return (cf.ec_add_plain if plain else cf.ec_add)(*args)
         if name == "ec_double":
             return (cf.ec_double_plain if plain else cf.ec_double)(*args)
+        if name == "ec_madd":
+            return (cf.ec_madd_plain if plain else cf.ec_madd)(*args)
         if name == "bucket_scan":
             return ((cf.bucket_scan_plain if plain else cf.bucket_scan)(*args),)
         raise KeyError(name)
@@ -195,16 +239,42 @@ def main() -> None:
         "colntt": ((3, 128, 16, 77), True),
         "ec_add": ((2, 16, 1000),),
         "ec_double": ((2, 16, 1000),),
+        "ec_madd": ((3, 16, 1000), (16, 1000), False),
         "bucket_scan": ((6, 5, 16, 33), False),
     }
     for name, spec in ragged.items():
         check(name, spec)
         log(f"[kernels] {name} at {spec}: kernel == plain (max |diff| 0)")
+    for spec in (((3, 16, 1000), (16, 1000), True), ((2, 16, 777), (2, 16, 777), False),
+                 ((2, 16, 777), (2, 16, 777), True)):
+        check("ec_madd", spec)
+        log(f"[kernels] ec_madd at {spec}: kernel == plain (max |diff| 0)")
     check("bucket_scan", ((6, 5, 16, 33), True))
     log("[kernels] bucket_scan (distinct) at (6, 5, 16, 33): kernel == plain (max |diff| 0)")
     for spec in (((2, 2, 16, 1000), True), ((1, 8, 16, 333), False), ((5, 32, 16, 1), False)):
         check("colntt", spec)
         log(f"[kernels] colntt at {spec}: kernel == plain (max |diff| 0)")
+
+    def time_ms(fn, reps: int) -> float:
+        """Mean milliseconds of fn() on the card (CUDA events), after one
+        warm-up call."""
+        fn()
+        torch.cuda.synchronize()
+        e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        e0.record()
+        for _ in range(reps):
+            fn()
+        e1.record()
+        torch.cuda.synchronize()
+        return e0.elapsed_time(e1) / reps
+
+    def stage_line(d: dict) -> str:
+        return json.dumps({k: round(v, 4) for k, v in d.items()})
+
+    def tampered_rejected(params, vk, proof) -> bool:
+        bad = bytearray(proof)
+        bad[len(bad) // 2] ^= 1
+        return not verify_proof(params, vk, bytes(bad))
 
     # --- 3. k=9 parity with the JAX goldens ---------------------------------------------
     t = time.time()
@@ -224,8 +294,38 @@ def main() -> None:
         raise AssertionError("k=9 proof does not verify")
     log(f"[k=9] vk and proof byte-identical to the JAX goldens ({len(proof9)} bytes), "
         f"verifies; {time.time() - t:.2f}s")
+    log("[k=9] launches: " + json.dumps(launches9))
+    # the JAX package's device path at k=9: every commit (m <= 1024) by
+    # double-and-add through ec_madd, none through the Pippenger bucket scan
+    if launches9["ec_madd"] == 0 or launches9["bucket_scan"] != 0:
+        raise AssertionError(
+            f"k=9 commits: ec_madd {launches9['ec_madd']} launches (want > 0), "
+            f"bucket_scan {launches9['bucket_scan']} (want 0)"
+        )
 
-    # --- 4. k=15 main path ------------------------------------------------------------------
+    # one k=9 commit both ways: the largest column set the k=9 run committed
+    (C9, _, m9), _, _ = largest9["ec_madd"][1]
+    fr_df = DeviceField(FR_BN254)
+    dc9 = params9.device_curve()
+    vals9 = fr_df._to_mont(rand_limbs(gen, (C9, 16, m9), torch, P[cf.FR]))
+    bases9 = params9.affine_lagrange_bases(dev)
+    wb9 = msm_window_bits(m9, dev)
+
+    def commit_dna():
+        return _pack_affine(dc9.df, *commit_double_and_add(dc9, fr_df, vals9, bases9))
+
+    def commit_pippenger():
+        digits = window_digits(fr_df, vals9, wb9)
+        digits = torch.nn.functional.pad(digits, (0, params9.n - m9))
+        return _pack_affine(dc9.df, *msm_many_device(dc9, bases9, digits, wb9, True))
+
+    if not torch.equal(commit_dna(), commit_pippenger()):
+        raise AssertionError("k=9 commit: double-and-add and Pippenger disagree")
+    ms_dna, ms_pip = time_ms(commit_dna, 3), time_ms(commit_pippenger, 3)
+    log(f"[k=9] one commit of {C9} columns x {m9} points: double-and-add (ec_madd) "
+        f"{ms_dna:.3f} ms, Pippenger (bucket_scan, window {wb9}) {ms_pip:.3f} ms; equal")
+
+    # --- 4. k=15 slice circuit -------------------------------------------------------------
     t = time.time()
     params = ParamsKZG.read(os.path.join(HERE, "params", "kzg_bn254_15.srs"), device=dev)
     t_read = time.time() - t
@@ -247,16 +347,13 @@ def main() -> None:
     proof = create_proof(params, pk, slice_circuit(), seed=0, device=dev, timings=stages)
     torch.cuda.synchronize()
     t_prove = time.time() - t
-    launches = dict(cf.LAUNCHES)
-    largest = dict(cf.LARGEST)
+    launches15, largest15 = dict(cf.LAUNCHES), dict(cf.LARGEST)
     t = time.time()
     ok = verify_proof(params, pk.vk, proof)
     t_verify = time.time() - t
     if not ok:
         raise AssertionError("k=15 proof does not verify")
-    bad = bytearray(proof)
-    bad[len(bad) // 2] ^= 1
-    if verify_proof(params, pk.vk, bytes(bad)):
+    if not tampered_rejected(params, pk.vk, proof):
         raise AssertionError("k=15 tampered proof verifies")
     digest = hashlib.sha256(proof).hexdigest()
     ref_path = os.path.join(HERE, "tests", "data", "torch_goldens", "slice_k15.json")
@@ -267,30 +364,79 @@ def main() -> None:
     log(f"[k=15] keygen {t_keygen:.3f}s, create_proof {t_prove:.3f}s, verify_proof "
         f"{t_verify:.3f}s; proof {len(proof)} bytes, sha256 equals the JAX proof's; "
         f"tampered proof rejected")
-    log("[k=15] keygen stages (s): " + json.dumps({k: round(v, 4) for k, v in kstages.items()}))
-    log("[k=15] create_proof stages (s): "
-        + json.dumps({k: round(v, 4) for k, v in stages.items()}))
-    log("[k=9] launches: " + json.dumps(launches9))
-    log("[k=15] launches: " + json.dumps(launches))
-    # the radix-2 butterfly serves domains below 2^12, the four-step colntt
-    # those from 2^12 up; every other kernel runs at both sizes
-    missing = [k for k in cf.KERNELS if k != "colntt" and launches9[k] == 0]
-    missing += [k for k in cf.KERNELS if k != "ntt_butterfly" and launches[k] == 0]
+    log("[k=15] keygen stages (s): " + stage_line(kstages))
+    log("[k=15] create_proof stages (s): " + stage_line(stages))
+    log("[k=15] launches: " + json.dumps(launches15))
+
+    # --- 4b. the ECDSA circuit at k=15: the main path at full width ---------------------------
+    # The witness draws random points; one generator seeded as the JAX
+    # package's (0x5EC0), drawn by the keygen builder first and the prover
+    # builder second, as bench.py and make_goldens.py --ecdsa build them.
+    rng = random.Random(0x5EC0)
+    with open(os.path.join(HERE, "tests", "data", "torch_goldens", "ecdsa_k15.json")) as f:
+        eref = json.load(f)
+    t = time.time()
+    ebuilder = ecdsa_circuit(15, 14, rng=rng)
+    ecp = ebuilder.config_params
+    t_ewit = time.time() - t
+    cols = [list(ecp.num_advice_per_phase), list(ecp.num_lookup_advice_per_phase), ecp.num_fixed]
+    want_cols = [eref["num_advice_per_phase"], eref["num_lookup_advice_per_phase"], eref["num_fixed"]]
+    if cols != want_cols:
+        raise AssertionError(f"ECDSA columns {cols} != JAX {want_cols}")
+    log(f"[ecdsa] keygen witness {t_ewit:.2f}s; columns: advice {ecp.num_advice_per_phase}, "
+        f"lookup {ecp.num_lookup_advice_per_phase}, fixed {ecp.num_fixed}, lookup_bits "
+        f"{ecp.lookup_bits}")
+    torch.cuda.synchronize()
+    cf.reset_launches()
+    ekstages, estages = {}, {}
+    t = time.time()
+    epk = keygen(params, ebuilder, device=dev, timings=ekstages)
+    torch.cuda.synchronize()
+    t_ekeygen = time.time() - t
+    t = time.time()
+    pb = pinning_of(ebuilder).prover_builder()
+    ecdsa_witness(pb, ecdsa_inputs(), rng)
+    t_epwit = time.time() - t
+    t = time.time()
+    eproof = create_proof(params, epk, pb, seed=0, device=dev, timings=estages)
+    torch.cuda.synchronize()
+    t_eprove = time.time() - t
+    launches_e, largest_e = dict(cf.LAUNCHES), dict(cf.LARGEST)
+    t = time.time()
+    ok = verify_proof(params, epk.vk, eproof)
+    t_everify = time.time() - t
+    log(f"[ecdsa] keygen {t_ekeygen:.3f}s, prover witness (pinned builder) {t_epwit:.3f}s, "
+        f"create_proof {t_eprove:.3f}s, verify_proof {t_everify:.3f}s; proof {len(eproof)} bytes")
+    log("[ecdsa] keygen stages (s): " + stage_line(ekstages))
+    log("[ecdsa] create_proof stages (s): " + stage_line(estages))
+    if not ok:
+        raise AssertionError("ECDSA proof does not verify")
+    if not tampered_rejected(params, epk.vk, eproof):
+        raise AssertionError("ECDSA tampered proof verifies")
+    evk = hashlib.sha256(epk.vk.to_bytes()).hexdigest()
+    edigest = hashlib.sha256(eproof).hexdigest()
+    if (evk, edigest) != (eref["vk_sha256"], eref["proof_sha256"]):
+        raise AssertionError(
+            f"ECDSA vk sha256 {evk}, proof sha256 {edigest} != JAX "
+            f"{eref['vk_sha256']}, {eref['proof_sha256']}"
+        )
+    log("[ecdsa] proof verifies, tampered proof rejected; vk and proof sha256 equal the "
+        "JAX package's")
+    log("[ecdsa] launches: " + json.dumps(launches_e))
+
+    # k=9 runs the radix-2 butterfly and commits by double-and-add (ec_madd);
+    # k=15 runs the four-step colntt and commits by Pippenger (bucket_scan);
+    # every other kernel runs at both sizes
+    missing = [k for k in cf.KERNELS if k not in ("colntt", "bucket_scan") and launches9[k] == 0]
+    for name, counts in (("k=15", launches15), ("ecdsa", launches_e)):
+        missing += [
+            f"{k} ({name})" for k in cf.KERNELS
+            if k not in ("ntt_butterfly", "ec_madd") and counts[k] == 0
+        ]
     if missing:
         raise AssertionError(f"kernels not launched on the main path: {missing}")
 
     # --- 5. every kernel at its main-path shapes: check and time ----------------------------
-    def time_ms(fn, reps: int) -> float:
-        fn()
-        torch.cuda.synchronize()
-        e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        e0.record()
-        for _ in range(reps):
-            fn()
-        e1.record()
-        torch.cuda.synchronize()
-        return e0.elapsed_time(e1) / reps
-
     def numel(shape) -> int:
         out = 1
         for d in shape:
@@ -325,6 +471,12 @@ def main() -> None:
         elif name == "ec_double":
             n = numel(spec[0]) // 16
             nbytes, ops = 6 * 64 * n, n * 7 * MM_OPS
+        elif name == "ec_madd":
+            shape, ashape, distinct = spec
+            n, na = numel(shape) // 16, numel(ashape) // 16
+            # P1 in and the result out (3 coordinates each), the affine bases
+            # once (shared by every row when they broadcast)
+            nbytes, ops = 64 * (6 * n + 2 * na), n * (11 if distinct else 17) * MM_OPS
         else:
             (Wb, R, _, CL), distinct = spec
             n = Wb * R * CL
@@ -335,7 +487,7 @@ def main() -> None:
 
     rows = []
     for name in cf.KERNELS:
-        spec = (largest.get(name) or largest9[name])[1]
+        spec = (largest_e.get(name) or largest15.get(name) or largest9[name])[1]
         fid, args, err = check(name, spec)
         reps = 3 if name == "bucket_scan" else 10
         ms = time_ms(lambda: run(name, fid, args, plain=False), reps)
@@ -347,10 +499,11 @@ def main() -> None:
             "route": "cuda",
             "source": f"halo2_lib_tpu_torch/{src}",
             "replaces": rep,
-            # the main path's launches: the k=9 and the k=15 run
-            "launches": launches9[name] + launches[name],
+            # the main path's launches: the k=9, k=15 slice and ECDSA runs
+            "launches": launches9[name] + launches15[name] + launches_e[name],
             "launches_k9": launches9[name],
-            "launches_k15": launches[name],
+            "launches_k15": launches15[name],
+            "launches_ecdsa": launches_e[name],
             "max_abs_err": err,
             "ms": round(ms, 6),
             "plain_ms": round(plain_ms, 6),

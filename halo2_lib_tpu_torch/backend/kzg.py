@@ -7,10 +7,14 @@ read the same files. Like halo2, both bases are kept: ``g``
 (monomial, tau^i G) and ``g_lagrange`` (L_i(tau) G); columns in Lagrange
 form commit against ``g_lagrange`` without an inverse NTT.
 
-Every commitment is a Pippenger MSM on the device (ops/ec_device.py,
-``distinct=True`` as SRS bases allow): one ``msm_many_device`` call commits
-all the columns a transcript phase writes. SRS generation (``setup``) and
-``write`` are not part of this port; ``gen_srs`` reads the committed file.
+Commitments on the card take the JAX package's two paths by column length
+m: up to ``COMMIT_SIMPLE_MAX`` points an MSB-first double-and-add over the
+254 scalar bits with the ``ec_madd`` kernel (``commit_double_and_add``, the
+small branch of the JAX ``_commit_chunk_jit``; every commit at k <= 10),
+above it a Pippenger MSM (ops/ec_device.py, ``distinct=True`` as SRS bases
+allow). Either way one call commits all the columns a transcript phase
+writes. SRS generation (``setup``) and ``write`` are not part of this port;
+``gen_srs`` reads the committed file.
 """
 
 from __future__ import annotations
@@ -25,6 +29,11 @@ from ..ops.limbs import N_LIMBS, DeviceField
 from ..utils.curves import BN254_G1
 from ..utils.device import resolve_device
 from ..utils.fields import FQ_BN254
+
+
+# Columns of at most this many points commit by double-and-add on the card
+# (the JAX package's COMMIT_SIMPLE_MAX default).
+COMMIT_SIMPLE_MAX = 1024
 
 
 def _params_dir() -> str:
@@ -102,16 +111,48 @@ class ParamsKZG:
     # --- commitments -------------------------------------------------------------------
     def commit_columns(self, fr_df: DeviceField, vals_mont, bases, window_bits: int | None = None):
         """[C, 16, m] Montgomery columns -> int32[C, 33] canonical affine
-        commitments (x limbs | y limbs | identity flag), one batched MSM."""
+        commitments (x limbs | y limbs | identity flag), all C columns in
+        one double-and-add (m <= COMMIT_SIMPLE_MAX on the card) or one
+        Pippenger MSM."""
         C, _, m = vals_mont.shape
         if C == 0:
             return torch.zeros((0, 33), dtype=torch.int32, device=vals_mont.device)
-        window_bits = window_bits or msm_window_bits(m, vals_mont.device)
-        digits = window_digits(fr_df, vals_mont, window_bits)
-        if m < self.n:
-            digits = torch.nn.functional.pad(digits, (0, self.n - m))
-        X, Y, Z = msm_many_device(self.device_curve(), bases, digits, window_bits, True)
-        return _pack_affine(self.device_curve().df, X, Y, Z)
+        dc = self.device_curve()
+        # The path is chosen by the tensor's device, not as a fallback: on the
+        # card, short columns take the double-and-add, as the JAX package's
+        # device path does (kzg.py:499). CPU tensors keep Pippenger at every
+        # m, as the JAX package never runs that branch on its CPU backend
+        # (it commits there through its native engine), and with the
+        # kernels' plain versions 254 doublings and mixed adds per column
+        # cost far more than a Pippenger MSM on one core.
+        if vals_mont.device.type != "cpu" and m <= COMMIT_SIMPLE_MAX:
+            X, Y, Z = commit_double_and_add(dc, fr_df, vals_mont, bases)
+        else:
+            window_bits = window_bits or msm_window_bits(m, vals_mont.device)
+            digits = window_digits(fr_df, vals_mont, window_bits)
+            if m < self.n:
+                digits = torch.nn.functional.pad(digits, (0, self.n - m))
+            X, Y, Z = msm_many_device(dc, bases, digits, window_bits, True)
+        return _pack_affine(dc.df, X, Y, Z)
+
+
+@torch.inference_mode()
+def commit_double_and_add(dc: DeviceCurve, fr_df: DeviceField, vals_mont, bases):
+    """[C, 16, m] Montgomery columns against the first m of the affine bases
+    (Ax, Ay) -> Jacobian [16, C] commitments: every lane runs an MSB-first
+    double-and-add over its scalar's 254 bits (one ec_double and one ec_madd
+    launch per bit for all C * m lanes), then the lanes of each column are
+    summed by a halving tree. The small branch of the JAX package's
+    ``ParamsKZG._commit_chunk_jit`` (its kzg.py:499-519)."""
+    C, _, m = vals_mont.shape
+    Am = tuple(t[:, :m].contiguous() for t in bases)  # [16, m], shared by the C columns
+    bits = window_digits(fr_df, vals_mont, 1).flip(-2) != 0  # [C, 254, m], MSB first
+    acc = dc.identity((C, m), vals_mont.device)
+    for w in range(bits.shape[-2]):
+        acc = dc._double(acc)
+        acc = dc.select(bits[:, w], dc._madd(acc, Am, False), acc)
+    X, Y, Z = dc.tree_reduce(acc)  # [C, 16, 1]
+    return tuple(t[..., 0].transpose(0, 1) for t in (X, Y, Z))
 
 
 def _pack_affine(df: DeviceField, X, Y, Z):

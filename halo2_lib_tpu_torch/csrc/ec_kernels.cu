@@ -5,6 +5,9 @@
 //   _ec_add_kernel (via ec_add): complete add, add-2007-bl plus the doubling
 //     branch and the identity and inverse cases;
 //   _ec_double_kernel (via ec_double): dbl-2009-l with a = 0;
+//   _ec_madd_kernel (via ec_madd; its body is _madd_core): the standalone
+//     mixed add, Jacobian + affine (madd-2007-bl, (0, 0) = affine identity),
+//     which the small-column commit path (m <= 1024) runs once per scalar bit;
 //   _bucket_scan_kernel (via bucket_scan): the MSM bucket accumulation, an
 //     inclusive segmented scan of mixed adds (madd-2007-bl, the arithmetic of
 //     _madd_core) over bucket-sorted affine bases.
@@ -15,12 +18,17 @@
 //
 // Design: one thread per point, every coordinate in registers; the formulas
 // and case selects are those of ops/ec_device.py, so each kernel agrees bit
-// for bit with its plain version. bucket_scan gives one thread to each
-// (window, lane) chain, which walks the chain's R steps in order with its
-// accumulator in registers: that loop replaces the TPU kernel's sequential
-// grid axis and its VMEM accumulators. Left for later: warp-cooperative
-// bucket runs, fewer threads idle at small Wb * CL, and keeping the scan's
-// intermediate points out of device memory (only bucket ends are read).
+// for bit with its plain version. ec_madd reads the affine operand with its
+// own row and lane strides, so one [16, m] set of bases serves every column
+// of a [C, 16, m] accumulator without being copied C times; the `distinct`
+// flag is a template parameter, so the doubling branch (6 of its 17
+// products) is compiled out when the caller drops it. bucket_scan gives one
+// thread to each (window, lane) chain, which walks the chain's R steps in
+// order with its accumulator in registers: that loop replaces the TPU
+// kernel's sequential grid axis and its VMEM accumulators. Left for later:
+// warp-cooperative bucket runs, fewer threads idle at small Wb * CL, and
+// keeping the scan's intermediate points out of device memory (only bucket
+// ends are read).
 #include "fp256.cuh"
 
 using namespace h2;
@@ -173,6 +181,28 @@ __global__ void ec_double_k(const int32_t* __restrict__ x1, const int32_t* __res
   store(oz, 16, B, r, 0, e, R.z);
 }
 
+// P1 (x1, y1, z1): [L, 16, B]; the affine (x2, y2): [La, 16, Ba], La in {1, L},
+// Ba in {1, B} (broadcast along that axis).
+template <bool DISTINCT>
+__global__ void ec_madd_k(const int32_t* __restrict__ x1, const int32_t* __restrict__ y1,
+                          const int32_t* __restrict__ z1, const int32_t* __restrict__ x2,
+                          const int32_t* __restrict__ y2, int64_t La, int64_t Ba,
+                          int32_t* __restrict__ ox, int32_t* __restrict__ oy,
+                          int32_t* __restrict__ oz, int64_t L, int64_t B) {
+  const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= L * B) return;
+  const int64_t r = i / B, e = i % B;
+  Jac P;
+  P.x = load(x1, L, B, r, e);
+  P.y = load(y1, L, B, r, e);
+  P.z = load(z1, L, B, r, e);
+  const Fe ax = load(x2, La, Ba, r, e), ay = load(y2, La, Ba, r, e);
+  const Jac R = ec_madd(P, ax, ay, DISTINCT);
+  store(ox, 16, B, r, 0, e, R.x);
+  store(oy, 16, B, r, 0, e, R.y);
+  store(oz, 16, B, r, 0, e, R.z);
+}
+
 // axy: [Wb, R, 16, CL] packed bases (row j = limb j | limb j+8 << 16; x rows
 // 0-7, y rows 8-15); start: [Wb, R, CL] nonzero at bucket-run starts;
 // out: [Wb, R, 48, CL] inclusive scan values (x | y | z limb rows).
@@ -233,6 +263,22 @@ extern "C" int h2_ec_double(const int32_t* x1, const int32_t* y1, const int32_t*
   if (n > 0)
     ec_double_k<<<H2_BLOCKS(n), H2_THREADS, 0, (cudaStream_t)stream>>>(x1, y1, z1, ox, oy, oz,
                                                                        L, B);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int h2_ec_madd(const int32_t* x1, const int32_t* y1, const int32_t* z1,
+                          const int32_t* x2, const int32_t* y2, int64_t La, int64_t Ba, int32_t* ox,
+                          int32_t* oy, int32_t* oz, int64_t L, int64_t B, int distinct,
+                          void* stream) {
+  const int64_t n = L * B;
+  if (n > 0) {
+    if (distinct)
+      ec_madd_k<true><<<H2_BLOCKS(n), H2_THREADS, 0, (cudaStream_t)stream>>>(
+          x1, y1, z1, x2, y2, La, Ba, ox, oy, oz, L, B);
+    else
+      ec_madd_k<false><<<H2_BLOCKS(n), H2_THREADS, 0, (cudaStream_t)stream>>>(
+          x1, y1, z1, x2, y2, La, Ba, ox, oy, oz, L, B);
+  }
   return (int)cudaGetLastError();
 }
 

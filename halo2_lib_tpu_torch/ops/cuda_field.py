@@ -18,6 +18,7 @@ wrapper            replaces (halo2_lib_tpu/ops/pallas_field.py)    source
 ``colntt``         ``ntt4.py:_colntt_kernel``                      ``ntt_kernels.cu``
 ``ec_add``         ``_ec_add_kernel``                              ``ec_kernels.cu``
 ``ec_double``      ``_ec_double_kernel``                           ``ec_kernels.cu``
+``ec_madd``        ``_ec_madd_kernel``                             ``ec_kernels.cu``
 ``bucket_scan``    ``_bucket_scan_kernel``                         ``ec_kernels.cu``
 =================  =============================================  ==========================
 
@@ -63,6 +64,7 @@ KERNELS = (
     "colntt",
     "ec_add",
     "ec_double",
+    "ec_madd",
     "bucket_scan",
 )
 # launches of each kernel since the last reset_launches(), and the operand
@@ -164,10 +166,12 @@ def _lib():
         lib.h2_colntt.argtypes = [I, P, P, P, P, I64, I64, I64, P]
         lib.h2_ec_add.argtypes = [P] * 9 + [I64, I64, P]
         lib.h2_ec_double.argtypes = [P] * 6 + [I64, I64, P]
+        lib.h2_ec_madd.argtypes = [P] * 5 + [I64, I64] + [P] * 3 + [I64, I64, I, P]
         lib.h2_bucket_scan.argtypes = [P, P, P, I64, I64, I64, I, P]
         for fn in (
             "h2_mont_mul", "h2_field_add", "h2_field_sub", "h2_fermat_inv",
-            "h2_ntt_butterfly", "h2_colntt", "h2_ec_add", "h2_ec_double", "h2_bucket_scan",
+            "h2_ntt_butterfly", "h2_colntt", "h2_ec_add", "h2_ec_double", "h2_ec_madd",
+            "h2_bucket_scan",
         ):
             getattr(lib, fn).restype = I
         _LIB = lib
@@ -618,6 +622,14 @@ def ec_double_plain(P):
     return tuple(from_rows(t, shape) for t in out)
 
 
+def ec_madd_plain(P1, A2, distinct: bool):
+    shape = _broadcast(*(t.shape for t in (*P1, *A2)))
+    c = _consts(FQ, P1[0].device)
+    x2, y2 = (to_rows(t, shape) for t in A2)
+    out = ec_madd64(tuple(to_rows(t, shape) for t in P1), x2, y2, distinct, c)
+    return tuple(from_rows(t, shape) for t in out)
+
+
 def unpack_bases(axy: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """[..., 16, CL] packed rows (row j = limb j | limb j+8 << 16; x rows 0-7,
     y rows 8-15) -> (x, y) int64 [..., 16, CL] limbs. The packed rows use the
@@ -795,6 +807,32 @@ def ec_double(P):
     rc = _lib().h2_ec_double(*map(_ptr, ins), *map(_ptr, outs), L, B, _stream(outs[0]))
     _check_rc(rc, "ec_double")
     _count("ec_double", L * B, (tuple(shape),))
+    return tuple(outs)
+
+
+def ec_madd(P1, A2, distinct: bool):
+    """Mixed add over Fq: Jacobian P1 (X, Y, Z) + affine A2 (x, y), (0, 0)
+    the affine identity, all [..., 16, B] and broadcastable; the affine pair
+    may be one [16, B] row set shared by every row of P1. `distinct=True`
+    drops the doubling branch: sound only when no accumulator can equal its
+    base (SRS bases)."""
+    if _on_cpu(*P1, *A2):
+        return ec_madd_plain(P1, A2, distinct)
+    if A2[0].shape != A2[1].shape:
+        raise ValueError(f"affine x {tuple(A2[0].shape)} and y {tuple(A2[1].shape)} differ")
+    shape = _broadcast(*(t.shape for t in (*P1, *A2)))
+    ins = _points(P1, shape)
+    (ax, La, Ba), (ay, _, _) = (_operand(t, shape) for t in A2)
+    outs = [torch.empty(shape, dtype=torch.int32, device=ins[0].device) for _ in range(3)]
+    L, B = _prod(shape[:-2]), shape[-1]
+    if L * B == 0:
+        return tuple(outs)
+    rc = _lib().h2_ec_madd(
+        *map(_ptr, ins), _ptr(ax), _ptr(ay), La, Ba, *map(_ptr, outs), L, B, int(distinct),
+        _stream(outs[0]),
+    )
+    _check_rc(rc, "ec_madd")
+    _count("ec_madd", L * B, (tuple(shape), tuple(ax.shape), bool(distinct)))
     return tuple(outs)
 
 

@@ -2,9 +2,10 @@
 
 The port of ``halo2_lib_tpu/ops/ec_device.py``, the engine of every KZG
 commitment. Points are three limb-major ``int32[..., 16, B]`` Montgomery
-tensors over Fq (Jacobian X, Y, Z; identity Z == 0). Point add and double are
-the ``ec_add``/``ec_double`` kernels of ops/cuda_field.py; the bucket
-accumulation is its ``bucket_scan`` kernel.
+tensors over Fq (Jacobian X, Y, Z; identity Z == 0). Point add, double and
+the mixed Jacobian + affine add are the ``ec_add``/``ec_double``/``ec_madd``
+kernels of ops/cuda_field.py; the bucket accumulation is its ``bucket_scan``
+kernel.
 
 The MSM is Pippenger with sort + segmented-scan bucket accumulation:
   * per window: sort the points by digit, run every (window, lane) chain of
@@ -49,6 +50,11 @@ class DeviceCurve:
     def _double(self, P):
         """Jacobian doubling (ec_double kernel)."""
         return cf.ec_double(P)
+
+    def _madd(self, P1, A2, distinct: bool):
+        """Jacobian P1 + affine A2 ((0, 0) = identity) (ec_madd kernel);
+        `distinct=True` drops the doubling branch (sound for SRS bases)."""
+        return cf.ec_madd(P1, A2, distinct)
 
     # --- packing ----------------------------------------------------------------
     def pack_points(self, points, device="cpu"):

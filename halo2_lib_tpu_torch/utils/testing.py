@@ -1,8 +1,9 @@
 """Circuits that drive the port end to end (tests and chip_smoke.py).
 
-`tests/data/torch_goldens/make_goldens.py` builds the same three circuits with
-the JAX package's eDSL; the port's proofs of them must be byte-identical to the
-goldens that script writes.
+`tests/data/torch_goldens/make_goldens.py` builds the same circuits with the
+JAX package's eDSL (the ECDSA one with `bench.py`'s helpers, which the
+functions below follow step for step); the port's proofs of them must be
+byte-identical to the goldens that script writes.
 """
 
 from __future__ import annotations
@@ -10,8 +11,12 @@ from __future__ import annotations
 import random
 
 from ..core.cells import Constant, Existing
+from ..ecc.ec import EccChip
+from ..ecc.ecdsa import ecdsa_sign, ecdsa_verify_no_pubkey_check
+from ..ecc.fp import FpChip
 from ..gates.circuit import BaseCircuitBuilder, CircuitBuilderStage
 from ..gates.flex_gate import GateChip
+from .curves import SECP256K1
 from .fields import FR_BN254
 
 GOLDEN_K = 9
@@ -77,4 +82,53 @@ def slice_circuit(k: int = 15, iters: int = 7000, seed: int = 0) -> BaseCircuitB
         rc.range_check(ctx, a, 4 * lookup_bits)
         z = gate.mul_add(ctx, Existing(z), Existing(a), Constant(3))
     builder.calculate_params(minimum_rows=9)
+    return builder
+
+
+def ecdsa_inputs():
+    """(pubkey, r, s, msghash): a secp256k1 signature from fixed seeds (the
+    repo's ECDSA bench inputs, bench.py:ecdsa_test_inputs)."""
+    rng = random.Random(42)
+    n = SECP256K1.scalar
+    priv = rng.randrange(1, n.p)
+    pub = SECP256K1.mul(SECP256K1.g, priv)
+    msghash = rng.randrange(1, n.p)
+    nonce = rng.randrange(1, n.p)
+    r, s = ecdsa_sign(SECP256K1, priv, msghash, nonce)
+    return pub, r, s, msghash
+
+
+def ecdsa_witness(builder: BaseCircuitBuilder, inputs, rng: random.Random | None = None, expect: int = 1):
+    """In-circuit ECDSA verification of `inputs` on a MOCK or PROVER builder
+    (88-bit limbs, 3 limbs, windows 4 and 4; bench.py:ecdsa_witness). The
+    circuit's random points come from `rng` (ecc/ec.py's shared DEFAULT_RNG
+    when None). Asserts the in-circuit bit equals `expect`."""
+    pub, r, s, msghash = inputs
+    range_chip = builder.range_chip()
+    fp_chip = FpChip(range_chip, 88, 3, SECP256K1.base)
+    fq_chip = FpChip(range_chip, 88, 3, SECP256K1.scalar)
+    chip = EccChip(fp_chip, SECP256K1, rng)
+    ctx = builder.main(0)
+    pk_pt = chip.load_private(ctx, pub)
+    r_a = fq_chip.load_private(ctx, r)
+    s_a = fq_chip.load_private(ctx, s)
+    m_a = fq_chip.load_private(ctx, msghash)
+    out = ecdsa_verify_no_pubkey_check(chip, ctx, pk_pt, r_a, s_a, m_a, 4, 4)
+    assert out.val() == expect, f"in-circuit ECDSA bit {out.val()} != {expect}"
+    return builder
+
+
+def ecdsa_circuit(
+    k: int = 15, lookup_bits: int = 14, rng: random.Random | None = None, inputs=None, expect: int = 1
+) -> BaseCircuitBuilder:
+    """The repo's headline circuit: secp256k1 ECDSA verification on a MOCK
+    builder, sized by calculate_params (bench.py:build_ecdsa_builder; at
+    k=15: 18 advice columns, 3 lookup-advice columns, 1 fixed column)."""
+    builder = BaseCircuitBuilder.from_stage(CircuitBuilderStage.MOCK).use_k(k)
+    builder.set_lookup_bits(lookup_bits)
+    ecdsa_witness(builder, ecdsa_inputs() if inputs is None else inputs, rng, expect)
+    builder.calculate_params(minimum_rows=9)
+    p = builder.config_params
+    p.num_advice_per_phase[0] = max(p.num_advice_per_phase[0], 2)
+    p.num_lookup_advice_per_phase[0] = max(p.num_lookup_advice_per_phase[0], 1)
     return builder

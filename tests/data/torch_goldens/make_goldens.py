@@ -14,16 +14,24 @@ itself,
   (``DeviceField.batch_inv``) of the Fr values of ``field_values(11)``;
 * ``ec_digests.json``: the SHA-256 of the JAX package's Jacobian complete
   add (``DeviceCurve._add_xla``) and double (``_double_xla``) on the points
-  of ``ec_case_points``, every special case of the add included;
+  of ``ec_case_points``, every special case of the add included, and of its
+  mixed add (``_madd_xla``, both ``distinct`` values) on ``madd_case_points``;
 * ``slice_k15.json`` (with ``--k15``): the SHA-256 of the JAX proof of the
-  k=15 slice circuit at seed 0, which ``chip_smoke.py`` compares with.
+  k=15 slice circuit at seed 0, which ``chip_smoke.py`` compares with;
+* ``ecdsa_k15.json`` (with ``--ecdsa``): the SHA-256 of the vk and of the
+  seed-0 proof of the repo's secp256k1 ECDSA-verify bench circuit at k=15
+  (``bench.py``: keygen builder, pinned prover builder, create_proof), and
+  its column counts.
 
 Run from the repository root:
 
-    JAX_PLATFORMS=cpu python tests/data/torch_goldens/make_goldens.py [--k15] [--ops-only]
+    JAX_PLATFORMS=cpu python tests/data/torch_goldens/make_goldens.py [--k15] [--ecdsa] [--ops-only]
 
 The circuits are built here with the JAX eDSL, step for step as the port's
-``utils/testing.py`` builds them with its own copy.
+``utils/testing.py`` builds them with its own copy (the ECDSA circuit with
+``bench.py``'s own helpers). The ECDSA witness draws random points from the
+JAX package's ``ecc/ec.py`` generator, so ``--ecdsa`` must build its two
+circuits first in a fresh process: it runs before every other freeze.
 """
 
 from __future__ import annotations
@@ -199,10 +207,73 @@ def freeze_ec() -> None:
         "add": digest(jax.jit(dc._add_xla)(dc.pack_points(pts1), dc.pack_points(pts2))),
         "double": digest(jax.jit(dc._double_xla)(dc.pack_points(dbl))),
     }
+    acc, base = madd_case_points()
+    P1 = tuple(dc.df.pack(c) for c in acc)
+    A2 = tuple(dc.df.pack(c) for c in base)
+    for key, distinct in (("madd", False), ("madd_distinct", True)):
+        out[key] = digest(jax.jit(dc._madd_xla, static_argnums=2)(P1, A2, distinct))
     with open(os.path.join(HERE, "ec_digests.json"), "w") as f:
         json.dump(out, f, indent=1)
         f.write("\n")
     print("ec_digests", flush=True)
+
+
+def madd_case_points():
+    """(Jacobian accumulators as (X, Y, Z) int lists, affine bases as (x, y)
+    int lists with (0, 0) = identity) from a fixed seed; lane 0: identity
+    accumulator, 1: identity base, 2: both, 3: base == accumulator (the
+    doubling branch), 4: base == -accumulator. Every accumulator has a random
+    Z. tests/test_torch_ec.py makes the same ones."""
+    from halo2_lib_tpu.utils.curves import BN254_G1
+
+    q = BN254_G1.base.p
+    rng = random.Random(13)
+    acc = [BN254_G1.random_point(rng) for _ in range(16)]
+    base = [BN254_G1.random_point(rng) for _ in range(16)]
+    acc[0] = None
+    base[1] = None
+    acc[2] = base[2] = None
+    base[3] = acc[3]
+    base[4] = (acc[4][0], q - acc[4][1])
+    jac = []
+    for pt in acc:
+        z = rng.randrange(1, q)
+        jac.append((0, 0, 0) if pt is None else (pt[0] * z * z % q, pt[1] * z**3 % q, z))
+    aff = [(0, 0) if pt is None else pt for pt in base]
+    return [list(c) for c in zip(*jac)], [list(c) for c in zip(*aff)]
+
+
+def freeze_ecdsa() -> None:
+    """The bench flow of bench.py at k=15 (without the pipeline): keygen on
+    the MOCK builder, then witness generation on the pinned prover builder
+    and create_proof at seed 0."""
+    from bench import build_ecdsa_builder, ecdsa_test_inputs, ecdsa_witness
+    from halo2_lib_tpu.utils.pinning import pinning_of
+
+    t = time.time()
+    params15 = ParamsKZG.read(os.path.join(ROOT, "params", "kzg_bn254_15.srs"))
+    builder = build_ecdsa_builder(15, 14)
+    pk = keygen(params15, builder)
+    cp = builder.config_params
+    pb = pinning_of(builder).prover_builder()
+    ecdsa_witness(pb, ecdsa_test_inputs())
+    proof = create_proof(params15, pk, pb, seed=0)
+    assert verify_proof(params15, pk.vk, proof)
+    out = {
+        "k": 15,
+        "lookup_bits": cp.lookup_bits,
+        "seed": 0,
+        "proof_sha256": hashlib.sha256(proof).hexdigest(),
+        "proof_bytes": len(proof),
+        "vk_sha256": hashlib.sha256(pk.vk.to_bytes()).hexdigest(),
+        "num_advice_per_phase": list(cp.num_advice_per_phase),
+        "num_lookup_advice_per_phase": list(cp.num_lookup_advice_per_phase),
+        "num_fixed": cp.num_fixed,
+    }
+    with open(os.path.join(HERE, "ecdsa_k15.json"), "w") as f:
+        json.dump(out, f, indent=1)
+        f.write("\n")
+    print(f"ecdsa_k15: {out} {time.time() - t:.1f}s", flush=True)
 
 
 def limbs16(cols, n: int) -> np.ndarray:
@@ -241,6 +312,8 @@ def freeze(name: str, builder, instances, params) -> None:
 
 
 def main() -> None:
+    if "--ecdsa" in sys.argv:
+        freeze_ecdsa()
     freeze_field()
     freeze_ntt()
     freeze_ec()

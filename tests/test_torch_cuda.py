@@ -93,6 +93,27 @@ def test_ec_kernels(dev):
 
 
 @pytest.mark.parametrize("distinct", [False, True])
+def test_ec_madd(dev, distinct):
+    """Random accumulators plus one shared set of affine bases, with
+    identity accumulators, (0, 0) bases, P + P and P + (-P) lanes."""
+    rng = random.Random(8 + distinct)
+    dc = DeviceCurve(DeviceField(BN254_G1.base), BN254_G1)
+    acc = [BN254_G1.random_point(rng) for _ in range(60)]
+    base = [BN254_G1.random_point(rng) for _ in range(30)]
+    acc[0] = base[1] = None
+    acc[2] = base[2] = None
+    acc[3] = base[3]
+    acc[4] = (base[4][0], BN254_G1.base.p - base[4][1])
+    P = tuple(t.reshape(16, 2, 30).permute(1, 0, 2).contiguous().to(dev) for t in dc.pack_points(acc))
+    A = tuple(t.to(dev) for t in dc.pack_points_affine(base))
+    cf.reset_launches()
+    got = cf.ec_madd(P, A, distinct)
+    assert cf.LAUNCHES["ec_madd"] == 1
+    for k, pl in zip(got, cf.ec_madd_plain(P, A, distinct)):
+        assert torch.equal(k, pl)
+
+
+@pytest.mark.parametrize("distinct", [False, True])
 def test_bucket_scan(dev, distinct):
     gen = torch.Generator().manual_seed(5)
     x = _rand((4, 7, 16, 33), FQ_BN254.p, gen, dev)
@@ -117,3 +138,24 @@ def test_msm_on_the_card_matches_cpu(dev):
     got = dc.unpack_points(msm_many_device(dc, A_dev, digits.to(dev), 8))
     assert got == want
     assert cf.LAUNCHES["bucket_scan"] == 1 and cf.LAUNCHES["ec_double"] > 0
+
+
+def test_small_commit_on_the_card_takes_ec_madd(dev):
+    """commit_columns at m <= COMMIT_SIMPLE_MAX: the double-and-add through
+    ec_madd on the card, no bucket scan, and the same points as the CPU's
+    Pippenger."""
+    import os
+
+    from halo2_lib_tpu_torch.backend.kzg import ParamsKZG
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    cpu = ParamsKZG.read(os.path.join(root, "params", "kzg_bn254_8.srs"), device="cpu")
+    card = ParamsKZG.read(os.path.join(root, "params", "kzg_bn254_8.srs"), device=dev)
+    fr_df = DeviceField(FR_BN254)
+    gen = torch.Generator().manual_seed(10)
+    vals = fr_df._to_mont(_rand((3, 16, 256), FR_BN254.p, gen, "cpu"))
+    want = cpu.commit_columns(fr_df, vals, cpu.affine_lagrange_bases("cpu"))
+    cf.reset_launches()
+    got = card.commit_columns(fr_df, vals.to(dev), card.affine_lagrange_bases(dev))
+    assert torch.equal(got.cpu(), want)
+    assert cf.LAUNCHES["ec_madd"] == 254 and cf.LAUNCHES["bucket_scan"] == 0

@@ -1,6 +1,7 @@
-"""Port G1 arithmetic and Pippenger MSM (halo2_lib_tpu_torch/ops/ec_device.py
-and the EC kernels' plain versions in ops/cuda_field.py) vs the JAX package's
-DeviceCurve and the host curve oracle BN254_G1.
+"""Port G1 arithmetic, Pippenger MSM and the small-column double-and-add
+commit (halo2_lib_tpu_torch/ops/ec_device.py, backend/kzg.py and the EC
+kernels' plain versions in ops/cuda_field.py) vs the JAX package's DeviceCurve
+and the host curve oracle BN254_G1.
 
 Jacobian outputs are compared limb for limb with the JAX package's XLA
 formulas (the same formulas, so the same coordinates), through the SHA-256 of
@@ -19,10 +20,12 @@ import pytest
 import torch
 
 from halo2_lib_tpu.utils.curves import BN254_G1 as JAX_G1
+from halo2_lib_tpu_torch.backend.kzg import ParamsKZG, _pack_affine, commit_double_and_add, host_points, window_digits
 from halo2_lib_tpu_torch.ops import cuda_field as cf
 from halo2_lib_tpu_torch.ops.ec_device import DeviceCurve, msm_many_device, pack_scalars
 from halo2_lib_tpu_torch.ops.limbs import DeviceField
 from halo2_lib_tpu_torch.utils.curves import BN254_G1
+from halo2_lib_tpu_torch.utils.fields import FR_BN254
 
 # One core per test process: the suite runs in parallel workers, and a
 # thread pool per worker would oversubscribe the host.
@@ -85,6 +88,90 @@ def test_ec_double(dc, jax_digests):
     got = dc.double(dc.pack_points(pts))
     assert dc.unpack_points(got) == [BN254_G1.double(p) for p in pts]
     assert _digest(got) == jax_digests["double"]
+
+
+def _madd_case_points():
+    """make_goldens.madd_case_points: Jacobian accumulators with random Z
+    and affine bases; lanes 0-4 are identity accumulator, identity base,
+    both, base == accumulator and base == -accumulator. Also returns the
+    host points."""
+    rng = random.Random(13)
+    acc = [BN254_G1.random_point(rng) for _ in range(16)]
+    base = [BN254_G1.random_point(rng) for _ in range(16)]
+    acc[0] = None
+    base[1] = None
+    acc[2] = base[2] = None
+    base[3] = acc[3]
+    base[4] = (acc[4][0], Q - acc[4][1])
+    jac = []
+    for pt in acc:
+        z = rng.randrange(1, Q)
+        jac.append((0, 0, 0) if pt is None else (pt[0] * z * z % Q, pt[1] * z**3 % Q, z))
+    aff = [(0, 0) if pt is None else pt for pt in base]
+    return [list(c) for c in zip(*jac)], [list(c) for c in zip(*aff)], acc, base
+
+
+@pytest.mark.parametrize("distinct", [False, True])
+def test_ec_madd_all_cases(dc, jax_digests, distinct):
+    """ec_madd's plain version equals the JAX package's _madd_xla limb for
+    limb (frozen digest) and the host oracle in affine form; with
+    distinct=True the doubling lane (3) is outside the contract."""
+    jac, aff, acc, base = _madd_case_points()
+    P1 = tuple(dc.df.pack(c) for c in jac)
+    A2 = tuple(dc.df.pack(c) for c in aff)
+    got = cf.ec_madd(P1, A2, distinct)
+    assert _digest(got) == jax_digests["madd_distinct" if distinct else "madd"]
+    want = [BN254_G1.add(p, q) for p, q in zip(acc, base)]
+    pts = dc.unpack_points(got)
+    if distinct:
+        pts, want = pts[:3] + pts[4:], want[:3] + want[4:]
+    assert pts == want
+    assert torch.equal(torch.stack(dc._madd(P1, A2, distinct)), torch.stack(got))
+
+
+def test_ec_madd_shared_bases(dc):
+    """A [2, 16, B] accumulator plus one [16, B] set of bases."""
+    rng = random.Random(14)
+    acc = [BN254_G1.random_point(rng) for _ in range(8)]
+    base = [BN254_G1.random_point(rng) for _ in range(4)]
+    P = tuple(t.reshape(16, 2, 4).permute(1, 0, 2) for t in dc.pack_points(acc))
+    A = dc.pack_points_affine(base)
+    got = tuple(t.permute(1, 0, 2).reshape(16, 8) for t in cf.ec_madd(P, A, False))
+    assert dc.unpack_points(got) == [BN254_G1.add(p, base[i % 4]) for i, p in enumerate(acc)]
+
+
+@pytest.fixture(scope="module")
+def srs8():
+    path = os.path.join(os.path.dirname(__file__), "..", "params", "kzg_bn254_8.srs")
+    return ParamsKZG.read(path, device="cpu")
+
+
+@pytest.mark.parametrize("m", [16, 64])
+def test_commit_double_and_add(dc, srs8, m):
+    """The card's small-column commit path, run here on the kernels' plain
+    versions (C = 2 columns), against a host-int MSM over the SRS Lagrange
+    bases and against the Pippenger MSM (msm_many_device) on the same
+    bases."""
+    fr_df = DeviceField(FR_BN254)
+    rng = np.random.default_rng(m)
+    cols = []
+    for _ in range(2):
+        words = rng.integers(0, 1 << 62, size=(m, 5), dtype=np.int64)
+        cols.append([sum(int(w) << (62 * i) for i, w in enumerate(row)) % R_ORDER for row in words])
+    cols[1][:3] = [0, 1, R_ORDER - 1]
+    vals = torch.stack([fr_df.pack(c) for c in cols])  # [2, 16, m] Montgomery
+    bases = srs8.affine_lagrange_bases("cpu")
+    got = host_points(_pack_affine(dc.df, *commit_double_and_add(dc, fr_df, vals, bases)))
+    want = []
+    for c in cols:
+        acc = None
+        for k, pt in zip(c, srs8.g_lagrange[:m]):
+            acc = BN254_G1.add(acc, BN254_G1.mul(pt, k))
+        want.append(acc)
+    assert got == want
+    digits = window_digits(fr_df, vals, 4)
+    pip = msm_many_device(dc, tuple(t[:, :m] for t in bases), digits, 4, distinct=True)
+    assert host_points(_pack_affine(dc.df, *pip)) == want
 
 
 def test_ec_add_batched_broadcast(dc):
