@@ -8,8 +8,12 @@ printing its own lines; any failure raises and exits non-zero:
 
 1. build   - compile the CUDA kernels from halo2_lib_tpu_torch/csrc (nvcc).
 2. kernels - every kernel against its plain PyTorch version on the card, at a
-             ragged size, bit for bit (ec_madd with identity accumulators,
-             (0, 0) bases, P + P and P + (-P) lanes, both `distinct` values).
+             ragged size, bit for bit (ec_add and ec_madd with identity
+             operands, P + P and P + (-P) lanes, ec_madd with (0, 0) bases and
+             both `distinct` values; the MSM tail's bucket_weight at 2, 8 and
+             64 lanes with empty, repeated and inverse bucket sums, and
+             msm_combine at 1 and 42 columns with a doubling and an identity
+             lane).
 3. k=9     - keygen + create_proof of the golden circuit; the vk and proof
              bytes must equal the JAX package's goldens in
              tests/data/torch_goldens/. Its domains (2^9, 2^11) take the
@@ -29,9 +33,20 @@ printing its own lines; any failure raises and exits non-zero:
              package's (ecdsa_k15.json).
              Kernel launch counts are reset just before phases 3, 4 and 4b
              and read just after each; every kernel must have launched in the
-             phases whose paths run it.
+             phases whose paths run it: k=9 every kernel but colntt and the
+             Pippenger ones (bucket_scan, bucket_weight, msm_combine); k=15
+             and ECDSA every kernel but ntt_butterfly, ec_madd and ec_double,
+             and ec_double not at all (the MSM's tail is the two fused
+             kernels, one launch each per MSM call).
 5. timing  - every kernel again, at the largest shapes the main path gave it:
              kernel time, plain version time and the bound, as one JSON line.
+5b. MSM    - one whole MSM at the ECDSA advice commit's shape (21 columns x
+             2^15 points, window 10, distinct bases), in turns old, new, new,
+             old: "old" ends in the loop of single ec_add / ec_double
+             launches that the two fused kernels replace (kept here, not in
+             the package), "new" is msm_many_device; both must give the same
+             Jacobian points. Whole-MSM and tail-only milliseconds of each
+             turn, and ec_add at [16, 139776], the old tail's largest shape.
 
 The last line is {"ok": true, "device": {...}}. Without a CUDA device the
 script exits non-zero and prints no result.
@@ -68,6 +83,14 @@ SOURCES = {
     "ec_double": ("csrc/ec_kernels.cu", "halo2_lib_tpu/ops/pallas_field.py:448"),
     "ec_madd": ("csrc/ec_kernels.cu", "halo2_lib_tpu/ops/pallas_field.py:430"),
     "bucket_scan": ("csrc/ec_kernels.cu", "halo2_lib_tpu/ops/pallas_field.py:620"),
+    # the fused MSM tail: the lax.scan / fori_loop bodies of single
+    # _ec_add_kernel / _ec_double_kernel calls at ec_device.py:624-688
+    "bucket_weight": ("csrc/ec_kernels.cu", "halo2_lib_tpu/ops/pallas_field.py:304"),
+    "msm_combine": ("csrc/ec_kernels.cu", "halo2_lib_tpu/ops/pallas_field.py:448"),
+}
+FUSES = {
+    "bucket_weight": "halo2_lib_tpu/ops/ec_device.py:624-674",
+    "msm_combine": "halo2_lib_tpu/ops/ec_device.py:676-688",
 }
 
 
@@ -80,6 +103,44 @@ def rand_limbs(gen, shape, torch, p: int):
     x = torch.randint(0, 1 << 16, shape, generator=gen, dtype=torch.int32, device="cuda")
     x[..., 15, :] %= p >> 240  # top limb below p's: value < p
     return x
+
+
+def special_lanes(S, cf, torch):
+    """Random Jacobian coordinates S (three [.., 16, B]) with, every seven
+    lanes, an identity (Z = 0), a copy of the lane before (equal points: the
+    doubling branch of a complete add or of an MSM row chain) and a negation
+    of it (P + (-P))."""
+    X, Y, Z = (t.clone() for t in S)
+
+    def from_lane_before(t, src, lane):
+        n = t[..., lane::7].shape[-1]
+        t[..., lane::7] = src[..., lane - 1 :: 7][..., :n]
+
+    Z[..., 3::7] = 0
+    for t in (X, Y, Z):
+        from_lane_before(t, t, 5)
+    negY = cf.field_sub_plain(cf.FQ, torch.zeros_like(Y), Y)
+    from_lane_before(X, X, 2)
+    from_lane_before(Z, Z, 2)
+    from_lane_before(Y, negY, 2)
+    return X, Y, Z
+
+
+def combine_specials(T, W: int, c: int, cf, torch):
+    """In place: column 0 of the window sums T ([16, C * W], lane = column *
+    W + w) meets res == T_{W-2} after its c doublings (the doubling branch);
+    the last column, where C > 1, res == -T_{W-2} (the identity)."""
+    C = T[0].shape[-1] // W
+    top = tuple(t[:, W - 1 : W] for t in T)
+    D = top
+    for _ in range(c):
+        D = cf.ec_double_plain(D)
+    negD = (D[0], cf.field_sub_plain(cf.FQ, torch.zeros_like(D[1]), D[1]), D[2])
+    for t, p, d, nd in zip(T, top, D, negD):
+        t[:, W - 2 : W - 1] = d
+        if C > 1:
+            t[:, C * W - 1 : C * W] = p
+            t[:, C * W - 2 : C * W - 1] = nd
 
 
 def main() -> None:
@@ -98,7 +159,9 @@ def main() -> None:
     from halo2_lib_tpu_torch.backend.prover import create_proof
     from halo2_lib_tpu_torch.backend.verifier import verify_proof
     from halo2_lib_tpu_torch.ops import cuda_field as cf
-    from halo2_lib_tpu_torch.ops.ec_device import msm_many_device, msm_window_bits
+    from halo2_lib_tpu_torch.ops.ec_device import (
+        bucket_sums, msm_many_device, msm_window_bits, weight_lanes,
+    )
     from halo2_lib_tpu_torch.ops.limbs import DeviceField
     from halo2_lib_tpu_torch.utils.fields import FQ_BN254, FR_BN254
     from halo2_lib_tpu_torch.utils.pinning import pinning_of
@@ -188,6 +251,16 @@ def main() -> None:
             axy = torch.where(dead, torch.zeros_like(axy), axy)
             start = (torch.rand((Wb, R, CL), generator=gen, device="cuda") < 1 / 16).to(torch.int32)
             return cf.FQ, (axy, start, bool(distinct))
+        if name == "bucket_weight":
+            shape, lanes = spec
+            S = [rand_limbs(gen, shape, torch, P[cf.FQ]) for _ in range(3)]
+            return cf.FQ, (special_lanes(S, cf, torch), lanes)
+        if name == "msm_combine":
+            shape, W, c = spec
+            T = special_lanes([rand_limbs(gen, shape, torch, P[cf.FQ]) for _ in range(3)],
+                              cf, torch)
+            combine_specials(T, W, c, cf, torch)
+            return cf.FQ, (T, W, c)
         raise KeyError(name)
 
     def cf_pack(x, torch):
@@ -212,6 +285,8 @@ def main() -> None:
             return (cf.ec_madd_plain if plain else cf.ec_madd)(*args)
         if name == "bucket_scan":
             return ((cf.bucket_scan_plain if plain else cf.bucket_scan)(*args),)
+        if name in ("bucket_weight", "msm_combine"):
+            return getattr(cf, f"{name}_plain" if plain else name)(*args)
         raise KeyError(name)
 
     def max_err(a, b) -> int:
@@ -241,6 +316,8 @@ def main() -> None:
         "ec_double": ((2, 16, 1000),),
         "ec_madd": ((3, 16, 1000), (16, 1000), False),
         "bucket_scan": ((6, 5, 16, 33), False),
+        "bucket_weight": ((13, 16, 7), 2),
+        "msm_combine": ((16, 26), 26, 10),
     }
     for name, spec in ragged.items():
         check(name, spec)
@@ -254,6 +331,13 @@ def main() -> None:
     for spec in (((2, 2, 16, 1000), True), ((1, 8, 16, 333), False), ((5, 32, 16, 1), False)):
         check("colntt", spec)
         log(f"[kernels] colntt at {spec}: kernel == plain (max |diff| 0)")
+    # the fused MSM tail: CL2 = 8 and 64 lanes (the card's) at ragged window
+    # counts, and 42 columns of 26 windows (the ECDSA path's widest commit)
+    for name, spec in (("bucket_weight", ((7, 16, 255), 8)),
+                       ("bucket_weight", ((11, 16, 1023), 64)),
+                       ("msm_combine", ((16, 42 * 26), 26, 10))):
+        check(name, spec)
+        log(f"[kernels] {name} at {spec}: kernel == plain (max |diff| 0)")
 
     def time_ms(fn, reps: int) -> float:
         """Mean milliseconds of fn() on the card (CUDA events), after one
@@ -424,15 +508,22 @@ def main() -> None:
         "JAX package's")
     log("[ecdsa] launches: " + json.dumps(launches_e))
 
-    # k=9 runs the radix-2 butterfly and commits by double-and-add (ec_madd);
-    # k=15 runs the four-step colntt and commits by Pippenger (bucket_scan);
-    # every other kernel runs at both sizes
-    missing = [k for k in cf.KERNELS if k not in ("colntt", "bucket_scan") and launches9[k] == 0]
+    # k=9 runs the radix-2 butterfly and commits by double-and-add (ec_double
+    # and ec_madd); k=15 runs the four-step colntt and commits by Pippenger
+    # (bucket_scan, then the fused tail: bucket_weight and msm_combine once
+    # per MSM call, no single doubling); every other kernel runs at both sizes
+    pippenger = ("bucket_scan", "bucket_weight", "msm_combine")
+    missing = [k for k in cf.KERNELS if k not in ("colntt", *pippenger) and launches9[k] == 0]
     for name, counts in (("k=15", launches15), ("ecdsa", launches_e)):
         missing += [
             f"{k} ({name})" for k in cf.KERNELS
-            if k not in ("ntt_butterfly", "ec_madd") and counts[k] == 0
+            if k not in ("ntt_butterfly", "ec_madd", "ec_double") and counts[k] == 0
         ]
+        if counts["ec_double"] != 0 or counts["bucket_weight"] != counts["msm_combine"]:
+            raise AssertionError(
+                f"{name}: ec_double {counts['ec_double']} launches (want 0), bucket_weight "
+                f"{counts['bucket_weight']} and msm_combine {counts['msm_combine']} (want equal)"
+            )
     if missing:
         raise AssertionError(f"kernels not launched on the main path: {missing}")
 
@@ -466,8 +557,10 @@ def main() -> None:
             # (A/2) log2(A) butterflies per column, then the mid product
             ops = n * (A.bit_length() - 1) // 2 * (MM_OPS + 3 * 16) + (n * MM_OPS if with_mid else 0)
         elif name == "ec_add":
+            # the add path's 16 products on every lane (the doubling branch,
+            # 8 + 7, and the identity lanes, 0, do no more)
             n = numel(spec[0]) // 16
-            nbytes, ops = 9 * 64 * n, n * 23 * MM_OPS
+            nbytes, ops = 9 * 64 * n, n * 16 * MM_OPS
         elif name == "ec_double":
             n = numel(spec[0]) // 16
             nbytes, ops = 6 * 64 * n, n * 7 * MM_OPS
@@ -477,6 +570,20 @@ def main() -> None:
             # P1 in and the result out (3 coordinates each), the affine bases
             # once (shared by every row when they broadcast)
             nbytes, ops = 64 * (6 * n + 2 * na), n * (11 if distinct else 17) * MM_OPS
+        elif name == "bucket_weight":
+            (Wtot, _, nb), lanes = spec
+            # per window, the function's own work: T_w = sum_b b * S_b as two
+            # running sums from the top bucket down (2 nb - 2 complete adds)
+            # and the log2(lanes) doublings; the suffix scans' extra adds are
+            # overhead of this design (see design_adds), not part of the bound
+            nbytes = 3 * 64 * Wtot * (nb + 1)
+            ops = Wtot * (16 * (2 * nb - 2) + 7 * (lanes.bit_length() - 1)) * MM_OPS
+        elif name == "msm_combine":
+            (_, CW), W, c = spec
+            C = CW // W
+            # W * c doublings and W - 1 adds (the first meets the identity)
+            nbytes = 3 * 64 * (CW + C)
+            ops = C * (7 * W * c + 16 * (W - 1)) * MM_OPS
         else:
             (Wb, R, _, CL), distinct = spec
             n = Wb * R * CL
@@ -484,6 +591,25 @@ def main() -> None:
             ops = n * (11 if distinct else 17) * MM_OPS
         t_bytes, t_ops = nbytes / PEAK_BYTES * 1e3, ops / PEAK_OPS32 * 1e3
         return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+    def design_adds(spec) -> int:
+        """Complete adds bucket_weight runs per window: the acc chain's past
+        each lane's first bucket, the tot chain's past its first row, the
+        three Hillis-Steele suffix scans' adds of lanes in range, D and + TS."""
+        (_, _, nb), lanes = spec
+        R2, levels = -(-nb // lanes), lanes.bit_length() - 1
+        scans = 3 * sum(lanes - (1 << d) for d in range(levels))
+        return (nb - lanes) + lanes * (R2 - 1) + scans + 2
+
+    def serial_products(name, spec) -> int:
+        """Montgomery products on the fused kernel's longest dependent chain
+        (complete adds at their 16, doublings at 7)."""
+        if name == "bucket_weight":
+            (_, _, nb), lanes = spec
+            levels = lanes.bit_length() - 1
+            return 16 * (2 * -(-nb // lanes) + 3 * levels + 2) + 7 * levels
+        (_, CW), W, c = spec
+        return 7 * W * c + 16 * W
 
     rows = []
     for name in cf.KERNELS:
@@ -494,7 +620,7 @@ def main() -> None:
         plain_ms = time_ms(lambda: run(name, fid, args, plain=True), 1)
         bms, by = bound(name, spec)
         src, rep = SOURCES[name]
-        rows.append({
+        row = {
             "name": name,
             "route": "cuda",
             "source": f"halo2_lib_tpu_torch/{src}",
@@ -511,9 +637,108 @@ def main() -> None:
             "bound_by": by,
             "library_ms": None,
             "shape": [list(s) if isinstance(s, tuple) else s for s in spec],
-        })
+        }
+        if name in FUSES:
+            row["fuses"] = FUSES[name]
+        rows.append(row)
         log(f"[timing] {name} at {spec}: {ms:.4f} ms (plain {plain_ms:.3f} ms, "
             f"bound {bms:.4f} ms by {by}), kernel == plain")
+        if name in FUSES:
+            log(f"[timing] {name}: its longest thread runs a chain of "
+                f"{serial_products(name, spec)} dependent Montgomery products, a floor the "
+                f"roofline bound does not see")
+        if name == "bucket_weight":
+            nb = spec[0][2]
+            log(f"[timing] bucket_weight: {design_adds(spec)} complete adds per window where "
+                f"the weighted sum needs {2 * nb - 2} (the suffix scans' extra adds)")
+
+    # --- 5b. one whole MSM at the ECDSA advice commit's shape: old tail vs fused ------------
+    def old_tail(dc, S, W: int, c: int, CL2: int):
+        """The MSM's tail before the fusion: the merged-lane weighted bucket
+        reduction and the window combine as loops of single ec_add /
+        ec_double launches (ops/ec_device.py before bucket_weight and
+        msm_combine)."""
+        Wtot, _, nb = S[0].shape
+        R2 = -(-nb // CL2)
+        M = Wtot * CL2
+        St = tuple(
+            torch.nn.functional.pad(t, (0, R2 * CL2 - nb)).reshape(Wtot, 16, R2, CL2) for t in S
+        )
+        rows = tuple(t.permute(2, 1, 0, 3).reshape(R2, 16, M).flip(0) for t in St)
+        acc = tot = dc.identity((M,), dev)
+        for r in range(R2):
+            acc = cf.ec_add(acc, tuple(t[r] for t in rows))
+            tot = cf.ec_add(tot, acc)
+
+        def suffix_local(Pt):
+            l_loc = torch.arange(Pt[0].shape[-1], device=dev) % CL2
+            for d in range(max(CL2.bit_length() - 1, 1)):
+                ok = (l_loc + (1 << d) < CL2)[None, :]
+                Qt = tuple(torch.where(ok, torch.roll(t, -(1 << d), dims=-1), torch.zeros_like(t))
+                           for t in Pt)
+                Pt = cf.ec_add(Pt, Qt)
+            return Pt
+
+        suf1 = suffix_local(tuple(torch.cat([a, t], dim=-1) for a, t in zip(acc, tot)))
+        sufA = tuple(t[..., :M] for t in suf1)
+        suf2 = suffix_local(sufA)
+        TA = tuple(t[..., 0::CL2] for t in sufA)
+        TT = tuple(t[..., M::CL2] for t in suf1)
+        TS = tuple(t[..., 0::CL2] for t in suf2)
+        D = cf.ec_add(TT, (TA[0], dc.df._neg(TA[1]), TA[2]))
+        for _ in range(CL2.bit_length() - 1):
+            D = cf.ec_double(D)
+        tX, tY, tZ = cf.ec_add(D, TS)
+        res = dc.identity((Wtot // W,), dev)
+        for w in range(W - 1, -1, -1):
+            for _ in range(c):
+                res = cf.ec_double(res)
+            res = cf.ec_add(res, tuple(t.reshape(16, Wtot // W, W)[..., w] for t in (tX, tY, tZ)))
+        return res
+
+    def wall_ms(fn, reps: int):
+        """Mean host-clock milliseconds of fn() between synchronizes (the MSM
+        synchronizes inside, at its bucket-carry gathers); returns the last
+        result too."""
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            out = fn()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3 / reps, out
+
+    C5, c5 = 21, 10
+    dc5 = params.device_curve()
+    bases5 = params.affine_lagrange_bases(dev)
+    vals5 = fr_df._to_mont(rand_limbs(gen, (C5, 16, params.n), torch, P[cf.FR]))
+    digits5 = window_digits(fr_df, vals5, c5)  # [C, W, n]
+    W5 = digits5.shape[1]
+    CL2_5 = weight_lanes((1 << c5) - 1, params.n, dev)
+    S5 = bucket_sums(dc5, bases5, digits5, c5, True)
+    turns = {
+        "old": lambda: old_tail(dc5, bucket_sums(dc5, bases5, digits5, c5, True), W5, c5, CL2_5),
+        "new": lambda: msm_many_device(dc5, bases5, digits5, c5, True),
+    }
+    tails = {
+        "old": lambda: old_tail(dc5, S5, W5, c5, CL2_5),
+        "new": lambda: cf.msm_combine(cf.bucket_weight(S5, CL2_5), W5, c5),
+    }
+    for fn in (*turns.values(), *tails.values()):  # warm-up
+        fn()
+    outs, msm5 = {}, []
+    for name in ("old", "new", "new", "old"):
+        ms_all, outs[name] = wall_ms(turns[name], 3)
+        ms_tail = time_ms(tails[name], 5)
+        msm5.append({"turn": name, "msm_ms": round(ms_all, 3), "tail_ms": round(ms_tail, 3)})
+        log(f"[msm] {name}: one MSM of {C5} columns x {params.n} points (window {c5}, "
+            f"{W5} windows, {CL2_5} weight lanes): {ms_all:.3f} ms; its tail {ms_tail:.3f} ms")
+    if any(not torch.equal(a, b) for a, b in zip(outs["old"], outs["new"])):
+        raise AssertionError("MSM: the fused tail's Jacobian output differs from the step loop's")
+    big = tuple(rand_limbs(gen, (16, 139776), torch, P[cf.FQ]) for _ in range(6))
+    ms_add_big = time_ms(lambda: cf.ec_add(big[:3], big[3:]), 10)
+    log(f"[msm] fused and step-loop tails give the same Jacobian points; ec_add at "
+        f"[16, 139776] (the step loop's widest launch): {ms_add_big:.4f} ms")
+    log(json.dumps({"msm_turns": msm5, "ec_add_16x139776_ms": round(ms_add_big, 6)}))
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],

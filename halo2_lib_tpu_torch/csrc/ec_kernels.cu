@@ -10,25 +10,47 @@
 //     which the small-column commit path (m <= 1024) runs once per scalar bit;
 //   _bucket_scan_kernel (via bucket_scan): the MSM bucket accumulation, an
 //     inclusive segmented scan of mixed adds (madd-2007-bl, the arithmetic of
-//     _madd_core) over bucket-sorted affine bases.
+//     _madd_core) over bucket-sorted affine bases;
+// and, as two fused kernels, the loops of _ec_add_kernel / _ec_double_kernel
+// launches that end a Pippenger MSM (halo2_lib_tpu/ops/ec_device.py:624-688,
+// lax.scan and fori_loop bodies there):
+//   bucket_weight: the weighted bucket reduction (the (acc, tot) row scan, the
+//     two within-block suffix scans, D = TT - TA, the log2(CL2) doublings and
+//     + TS), one block per window;
+//   msm_combine: the MSB-first window combine (c doublings and one add per
+//     window), one thread per column.
 //
-// Bound on the H100: integer multiply issue. A complete add is 23 Montgomery
-// products, a double 7, a mixed add 11 (17 with the doubling branch), against
-// at most 288 bytes of coordinates per point.
+// Bound on the H100: integer multiply issue. A complete add is 16 Montgomery
+// products on its add path (the doubling branch, taken on no lane of an MSM
+// in practice, runs dbl-2009-l's 7 instead), a double 7, a mixed add 11 (17
+// with the doubling branch), against at most 288 bytes of coordinates per
+// point. The two fused kernels are bound by their serial chains: a lane of
+// bucket_weight runs 2 * R2 + 3 log2(CL2) complete adds in order, a column of
+// msm_combine W * c doublings and W adds (about 2400 products at W = 26,
+// c = 10), each product a dependent chain of 32-bit multiply-adds.
 //
-// Design: one thread per point, every coordinate in registers; the formulas
-// and case selects are those of ops/ec_device.py, so each kernel agrees bit
-// for bit with its plain version. ec_madd reads the affine operand with its
-// own row and lane strides, so one [16, m] set of bases serves every column
-// of a [C, 16, m] accumulator without being copied C times; the `distinct`
-// flag is a template parameter, so the doubling branch (6 of its 17
-// products) is compiled out when the caller drops it. bucket_scan gives one
-// thread to each (window, lane) chain, which walks the chain's R steps in
-// order with its accumulator in registers: that loop replaces the TPU
-// kernel's sequential grid axis and its VMEM accumulators. Left for later:
-// warp-cooperative bucket runs, fewer threads idle at small Wb * CL, and
-// keeping the scan's intermediate points out of device memory (only bucket
-// ends are read).
+// Design: one thread per point (or chain), every coordinate in registers; the
+// formulas are those of ops/ec_device.py, and the fused kernels run that
+// file's loops in their order, so each kernel agrees bit for bit with its
+// plain version. The complete add branches on its cases instead of selecting
+// between computed branches, so the add path holds only its own temporaries
+// (ec_add_k: no spills, two 128-thread blocks an SM).
+// ec_madd reads the affine operand with its own row and lane strides, so one
+// [16, m] set of bases serves every column of a [C, 16, m] accumulator
+// without being copied C times; the `distinct` flag is a template parameter,
+// so the doubling branch (6 of its 17 products) is compiled out when the
+// caller drops it. bucket_scan gives one thread to each (window, lane) chain,
+// which walks the chain's R steps in order with its accumulator in
+// registers: that loop replaces the TPU kernel's sequential grid axis and its
+// VMEM accumulators. bucket_weight reads each bucket sum once and keeps the
+// row chain in registers and the suffix scans in shared memory, where the
+// loop of single launches it replaces wrote every merged-lane point back to
+// device memory at each of its 46 adds and 6 doublings; msm_combine replaces
+// 286 launches of a few dozen threads each. Left for later: warp-cooperative
+// bucket runs, fewer threads idle at small Wb * CL, keeping the scan's
+// intermediate points out of device memory (only bucket ends are read), and
+// the lane-carry scan of the bucket accumulation (still single ec_add
+// launches).
 #include "fp256.cuh"
 
 using namespace h2;
@@ -39,48 +61,24 @@ struct Jac {
   Fe x, y, z;
 };
 
-__device__ __forceinline__ Jac ec_add_complete(const Jac& P, const Jac& Q) {
-  const Fe &X1 = P.x, &Y1 = P.y, &Z1 = P.z, &X2 = Q.x, &Y2 = Q.y, &Z2 = Q.z;
-  const Fe Z1Z1 = mul<FQ>(Z1, Z1), Z2Z2 = mul<FQ>(Z2, Z2);
-  const Fe A = mul<FQ>(X1, X1), B = mul<FQ>(Y1, Y1);
-  const Fe U1 = mul<FQ>(X1, Z2Z2), U2 = mul<FQ>(X2, Z1Z1);
-  const Fe t1 = mul<FQ>(Y1, Z2), t2 = mul<FQ>(Y2, Z1);
-  const Fe C = mul<FQ>(B, B), YZ = mul<FQ>(Y1, Z1);
-  const Fe tXB = add<FQ>(X1, B);
-  const Fe S1 = mul<FQ>(t1, Z2Z2), S2 = mul<FQ>(t2, Z1Z1), tXB2 = mul<FQ>(tXB, tXB);
-  const Fe H = sub<FQ>(U2, U1);
-  const Fe r_ = sub<FQ>(S2, S1);
-  const Fe rr = dbl<FQ>(r_);
-  const Fe E = add<FQ>(dbl<FQ>(A), A);
-  const Fe D = dbl<FQ>(sub<FQ>(sub<FQ>(tXB2, A), C));
-  const Fe zz = add<FQ>(Z1, Z2);
-  const Fe HH = mul<FQ>(H, H), F_ = mul<FQ>(E, E), rr2 = mul<FQ>(rr, rr), zz2 = mul<FQ>(zz, zz);
-  const Fe I = dbl<FQ>(dbl<FQ>(HH));
-  const Fe X3d = sub<FQ>(F_, dbl<FQ>(D));
-  const Fe zzsub = sub<FQ>(sub<FQ>(zz2, Z1Z1), Z2Z2);
-  const Fe J = mul<FQ>(H, I), V = mul<FQ>(U1, I);
-  Fe Z3 = mul<FQ>(zzsub, H);
-  const Fe Ed = mul<FQ>(E, sub<FQ>(D, X3d));
-  Fe X3 = sub<FQ>(sub<FQ>(rr2, J), dbl<FQ>(V));
-  const Fe S1J = mul<FQ>(S1, J);
-  Fe Y3 = sub<FQ>(mul<FQ>(rr, sub<FQ>(V, X3)), dbl<FQ>(S1J));
-  const Fe C4 = dbl<FQ>(dbl<FQ>(C));
-  const Fe Y3d = sub<FQ>(Ed, dbl<FQ>(C4));
-  const Fe Z3d = dbl<FQ>(YZ);
+__device__ __forceinline__ Jac identity() {
+  Jac o;
+  o.x = zero();
+  o.y = zero();
+  o.z = zero();
+  return o;
+}
 
-  const bool p1_inf = is_zero(Z1), p2_inf = is_zero(Z2);
-  const bool h_zero = is_zero(H), r_zero = is_zero(r_);
-  const bool is_double = h_zero && r_zero && !p1_inf && !p2_inf;
-  const bool is_ident = h_zero && !r_zero && !p1_inf && !p2_inf;
-  X3 = sel(is_double, X3d, X3);
-  Y3 = sel(is_double, Y3d, Y3);
-  Z3 = sel(is_double, Z3d, Z3);
-  Z3 = sel(is_ident, zero(), Z3);
-  Jac out;
-  out.x = sel(p2_inf, X1, sel(p1_inf, X2, X3));
-  out.y = sel(p2_inf, Y1, sel(p1_inf, Y2, Y3));
-  out.z = sel(p2_inf, Z1, sel(p1_inf, Z2, Z3));
-  return out;
+// Point (r, e) of three [L, 16, B] coordinate tensors (see load).
+__device__ __forceinline__ Jac load_jac(const int32_t* __restrict__ x,
+                                        const int32_t* __restrict__ y,
+                                        const int32_t* __restrict__ z, int64_t L, int64_t B,
+                                        int64_t r, int64_t e) {
+  Jac P;
+  P.x = load(x, L, B, r, e);
+  P.y = load(y, L, B, r, e);
+  P.z = load(z, L, B, r, e);
+  return P;
 }
 
 __device__ __forceinline__ Jac ec_double_jac(const Jac& P) {
@@ -96,6 +94,45 @@ __device__ __forceinline__ Jac ec_double_jac(const Jac& P) {
   out.z = dbl<FQ>(mul<FQ>(P.y, P.z));
   return out;
 }
+
+// Complete add: add-2007-bl and the cases of ops/ec_device.py. Either
+// operand the identity returns the other (P when both are); P + P returns
+// dbl-2009-l of P; P + (-P) takes the add path, whose Z3 = ZZ * H is then 0,
+// as the plain version's is_ident select makes it. The add path computes its
+// own 16 products only, and the doubling runs only on the lanes that take it
+// (none, in practice, in an MSM). The order keeps few values live: P stays
+// for the doubling until H and r are known; each of Q's coordinates and both
+// squares die as soon as they are used (S1 = Y1 (Z2 Z2Z2) and S2 = Y2 (Z1
+// Z1Z1), the same field elements as Y1 Z2 Z2Z2 and Y2 Z1 Z1Z1).
+__device__ __forceinline__ Jac ec_add_complete(const Jac& P, const Jac& Q) {
+  if (is_zero(Q.z)) return P;
+  if (is_zero(P.z)) return Q;
+  const Fe Z1Z1 = mul<FQ>(P.z, P.z);
+  const Fe Z2Z2 = mul<FQ>(Q.z, Q.z);
+  const Fe zz = add<FQ>(P.z, Q.z);
+  const Fe ZZ = sub<FQ>(sub<FQ>(mul<FQ>(zz, zz), Z1Z1), Z2Z2);  // 2 Z1 Z2
+  const Fe S1 = mul<FQ>(P.y, mul<FQ>(Q.z, Z2Z2));
+  const Fe U1 = mul<FQ>(P.x, Z2Z2);
+  const Fe H = sub<FQ>(mul<FQ>(Q.x, Z1Z1), U1);
+  const Fe r_ = sub<FQ>(mul<FQ>(Q.y, mul<FQ>(P.z, Z1Z1)), S1);
+  if (is_zero(H) && is_zero(r_)) return ec_double_jac(P);
+  Jac out;
+  out.z = mul<FQ>(ZZ, H);
+  const Fe HH = mul<FQ>(H, H);
+  const Fe I = dbl<FQ>(dbl<FQ>(HH));
+  const Fe J = mul<FQ>(H, I);
+  const Fe V = mul<FQ>(U1, I);
+  const Fe rr = dbl<FQ>(r_);
+  out.x = sub<FQ>(sub<FQ>(mul<FQ>(rr, rr), J), dbl<FQ>(V));
+  const Fe S1J = mul<FQ>(S1, J);
+  out.y = sub<FQ>(mul<FQ>(rr, sub<FQ>(V, out.x)), dbl<FQ>(S1J));
+  return out;
+}
+
+// The complete add out of line, for the fused kernels' cold call sites (the
+// suffix scans, D and + TS): inlined at each of them, the add and its
+// doubling branch multiplied bucket_weight_k's compile time for no gain.
+__device__ __noinline__ Jac ec_add_cold(Jac P, Jac Q) { return ec_add_complete(P, Q); }
 
 // Jacobian accumulator + affine base (x2, y2); (0, 0) is the affine identity.
 // `distinct` drops the doubling branch (sound for SRS bases).
@@ -143,22 +180,22 @@ __device__ __forceinline__ Jac ec_madd(const Jac& P, const Fe& x2, const Fe& y2,
   return out;
 }
 
-__global__ void ec_add_k(const int32_t* __restrict__ x1, const int32_t* __restrict__ y1,
-                         const int32_t* __restrict__ z1, const int32_t* __restrict__ x2,
-                         const int32_t* __restrict__ y2, const int32_t* __restrict__ z2,
-                         int32_t* __restrict__ ox, int32_t* __restrict__ oy,
-                         int32_t* __restrict__ oz, int64_t L, int64_t B) {
+// 128 threads a block, at least two blocks an SM: ptxas may take up to 255
+// registers (it takes about 150 and spills nothing); held to 128 (two
+// 256-thread blocks) or to 168 (three 128-thread blocks) it spills.
+constexpr int EC_ADD_THREADS = 128;
+
+__global__ void __launch_bounds__(EC_ADD_THREADS, 2)
+ec_add_k(const int32_t* __restrict__ x1, const int32_t* __restrict__ y1,
+         const int32_t* __restrict__ z1, const int32_t* __restrict__ x2,
+         const int32_t* __restrict__ y2, const int32_t* __restrict__ z2,
+         int32_t* __restrict__ ox, int32_t* __restrict__ oy, int32_t* __restrict__ oz, int64_t L,
+         int64_t B) {
   const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= L * B) return;
   const int64_t r = i / B, e = i % B;
-  Jac P, Q;
-  P.x = load(x1, L, B, r, e);
-  P.y = load(y1, L, B, r, e);
-  P.z = load(z1, L, B, r, e);
-  Q.x = load(x2, L, B, r, e);
-  Q.y = load(y2, L, B, r, e);
-  Q.z = load(z2, L, B, r, e);
-  const Jac R = ec_add_complete(P, Q);
+  const Jac R =
+      ec_add_complete(load_jac(x1, y1, z1, L, B, r, e), load_jac(x2, y2, z2, L, B, r, e));
   store(ox, 16, B, r, 0, e, R.x);
   store(oy, 16, B, r, 0, e, R.y);
   store(oz, 16, B, r, 0, e, R.z);
@@ -246,13 +283,87 @@ __global__ void bucket_scan_k(const int32_t* __restrict__ axy, const int32_t* __
   }
 }
 
+// Weighted bucket reduction T_w = sum_b b * S_{w,b} of one window per block,
+// in the order of ops/ec_device.py's merged-lane loops (so bit-equal to
+// them): slot b - 1 = r * CL2 + l; thread l walks its lane's R2 rows from the
+// top with acc and tot in registers (acc += S, tot += acc); the block then
+// runs the within-block inclusive suffix scans of acc and tot, and of the
+// scanned acc again, in shared memory (Hillis-Steele; a lane past the end
+// adds nothing); lane 0 forms D = TT + (-TA), doubles it log2(CL2) times and
+// adds TS. sx, sy, sz: [Wtot, 16, nb]; out: [16, Wtot]. CL2 = blockDim.x, a
+// power of two; dynamic shared memory 2 * CL2 points.
+constexpr int WEIGHT_MAX_LANES = 256;
+
+__global__ void __launch_bounds__(WEIGHT_MAX_LANES)
+bucket_weight_k(const int32_t* __restrict__ sx, const int32_t* __restrict__ sy,
+                const int32_t* __restrict__ sz, int32_t* __restrict__ ox,
+                int32_t* __restrict__ oy, int32_t* __restrict__ oz, int64_t nb, int R2) {
+  extern __shared__ Jac scan[];  // [2, CL2]: acc | tot
+  const int CL2 = blockDim.x, l = threadIdx.x;
+  const int64_t w = blockIdx.x, Wtot = gridDim.x;
+  Jac acc = identity(), tot = identity();
+  for (int r = R2 - 1; r >= 0; r--) {
+    const int64_t s = (int64_t)r * CL2 + l;
+    const Jac row = s < nb ? load_jac(sx, sy, sz, Wtot, nb, w, s) : identity();
+    acc = ec_add_complete(acc, row);
+    tot = ec_add_complete(tot, acc);
+  }
+  Jac* scanA = scan;
+  Jac* scanT = scan + CL2;
+  for (int sh = 1; sh < CL2; sh <<= 1) {
+    scanA[l] = acc;
+    scanT[l] = tot;
+    __syncthreads();
+    if (l + sh < CL2) {
+      acc = ec_add_cold(acc, scanA[l + sh]);
+      tot = ec_add_cold(tot, scanT[l + sh]);
+    }
+    __syncthreads();
+  }
+  Jac ts = acc;
+  for (int sh = 1; sh < CL2; sh <<= 1) {
+    scanA[l] = ts;
+    __syncthreads();
+    if (l + sh < CL2) ts = ec_add_cold(ts, scanA[l + sh]);
+    __syncthreads();
+  }
+  if (l != 0) return;
+  Jac neg_ta = acc;
+  neg_ta.y = sub<FQ>(zero(), acc.y);
+  Jac D = ec_add_cold(tot, neg_ta);
+  for (int k = 1; k < CL2; k <<= 1) D = ec_double_jac(D);
+  const Jac T = ec_add_cold(D, ts);
+  store(ox, 16, Wtot, 0, 0, w, T.x);
+  store(oy, 16, Wtot, 0, 0, w, T.y);
+  store(oz, 16, Wtot, 0, 0, w, T.z);
+}
+
+// Window combine of a Pippenger MSM, one thread per column with res in
+// registers: for w = W - 1 down to 0, c doublings, then res += T_w. tx, ty,
+// tz: [16, C * W], lane = column * W + w; out: [16, C].
+__global__ void __launch_bounds__(32)
+msm_combine_k(const int32_t* __restrict__ tx, const int32_t* __restrict__ ty,
+              const int32_t* __restrict__ tz, int32_t* __restrict__ ox,
+              int32_t* __restrict__ oy, int32_t* __restrict__ oz, int64_t C, int W, int c) {
+  const int64_t col = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (col >= C) return;
+  Jac res = identity();
+  for (int w = W - 1; w >= 0; w--) {
+    for (int k = 0; k < c; k++) res = ec_double_jac(res);
+    res = ec_add_complete(res, load_jac(tx, ty, tz, 1, C * W, 0, col * W + w));
+  }
+  store(ox, 16, C, 0, 0, col, res.x);
+  store(oy, 16, C, 0, 0, col, res.y);
+  store(oz, 16, C, 0, 0, col, res.z);
+}
+
 extern "C" int h2_ec_add(const int32_t* x1, const int32_t* y1, const int32_t* z1,
                          const int32_t* x2, const int32_t* y2, const int32_t* z2, int32_t* ox,
                          int32_t* oy, int32_t* oz, int64_t L, int64_t B, void* stream) {
   const int64_t n = L * B;
   if (n > 0)
-    ec_add_k<<<H2_BLOCKS(n), H2_THREADS, 0, (cudaStream_t)stream>>>(x1, y1, z1, x2, y2, z2, ox,
-                                                                    oy, oz, L, B);
+    ec_add_k<<<(unsigned)((n + EC_ADD_THREADS - 1) / EC_ADD_THREADS), EC_ADD_THREADS, 0,
+               (cudaStream_t)stream>>>(x1, y1, z1, x2, y2, z2, ox, oy, oz, L, B);
   return (int)cudaGetLastError();
 }
 
@@ -288,5 +399,26 @@ extern "C" int h2_bucket_scan(const int32_t* axy, const int32_t* start, int32_t*
   if (n > 0)
     bucket_scan_k<<<H2_BLOCKS(n), H2_THREADS, 0, (cudaStream_t)stream>>>(axy, start, out, Wb, R,
                                                                          CL, distinct);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int h2_bucket_weight(const int32_t* sx, const int32_t* sy, const int32_t* sz,
+                                int32_t* ox, int32_t* oy, int32_t* oz, int64_t Wtot, int64_t nb,
+                                int CL2, void* stream) {
+  if (CL2 < 1 || CL2 > WEIGHT_MAX_LANES || (CL2 & (CL2 - 1))) return (int)cudaErrorInvalidValue;
+  if (Wtot > 0) {
+    const int R2 = (int)((nb + CL2 - 1) / CL2);
+    bucket_weight_k<<<(unsigned)Wtot, CL2, 2 * CL2 * sizeof(Jac), (cudaStream_t)stream>>>(
+        sx, sy, sz, ox, oy, oz, nb, R2);
+  }
+  return (int)cudaGetLastError();
+}
+
+extern "C" int h2_msm_combine(const int32_t* tx, const int32_t* ty, const int32_t* tz,
+                              int32_t* ox, int32_t* oy, int32_t* oz, int64_t C, int W, int c,
+                              void* stream) {
+  if (C > 0)
+    msm_combine_k<<<(unsigned)((C + 31) / 32), 32, 0, (cudaStream_t)stream>>>(tx, ty, tz, ox, oy,
+                                                                             oz, C, W, c);
   return (int)cudaGetLastError();
 }

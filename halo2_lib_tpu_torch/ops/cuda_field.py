@@ -20,7 +20,13 @@ wrapper            replaces (halo2_lib_tpu/ops/pallas_field.py)    source
 ``ec_double``      ``_ec_double_kernel``                           ``ec_kernels.cu``
 ``ec_madd``        ``_ec_madd_kernel``                             ``ec_kernels.cu``
 ``bucket_scan``    ``_bucket_scan_kernel``                         ``ec_kernels.cu``
+``bucket_weight``  ``_ec_add_kernel`` + ``_ec_double_kernel`` loops ``ec_kernels.cu``
+``msm_combine``    ``_ec_double_kernel`` + ``_ec_add_kernel`` loops ``ec_kernels.cu``
 =================  =============================================  ==========================
+
+The last two fuse the loops of single point ops that end a Pippenger MSM
+(``halo2_lib_tpu/ops/ec_device.py:624-688``): the weighted bucket reduction
+and the window combine, each in one launch, in the loops' order.
 
 They are compiled with ``nvcc`` for ``sm_90a`` into one shared library with
 a plain C interface, at first use, under ``halo2_lib_tpu_torch/_build/``
@@ -66,6 +72,8 @@ KERNELS = (
     "ec_double",
     "ec_madd",
     "bucket_scan",
+    "bucket_weight",
+    "msm_combine",
 )
 # launches of each kernel since the last reset_launches(), and the operand
 # shapes of each kernel's largest launch in that time (chip_smoke.py times
@@ -168,10 +176,12 @@ def _lib():
         lib.h2_ec_double.argtypes = [P] * 6 + [I64, I64, P]
         lib.h2_ec_madd.argtypes = [P] * 5 + [I64, I64] + [P] * 3 + [I64, I64, I, P]
         lib.h2_bucket_scan.argtypes = [P, P, P, I64, I64, I64, I, P]
+        lib.h2_bucket_weight.argtypes = [P] * 6 + [I64, I64, I, P]
+        lib.h2_msm_combine.argtypes = [P] * 6 + [I64, I, I, P]
         for fn in (
             "h2_mont_mul", "h2_field_add", "h2_field_sub", "h2_fermat_inv",
             "h2_ntt_butterfly", "h2_colntt", "h2_ec_add", "h2_ec_double", "h2_ec_madd",
-            "h2_bucket_scan",
+            "h2_bucket_scan", "h2_bucket_weight", "h2_msm_combine",
         ):
             getattr(lib, fn).restype = I
         _LIB = lib
@@ -661,6 +671,69 @@ def bucket_scan_plain(axy, seg_start, distinct: bool):
     return out.permute(2, 0, 1, 3).to(torch.int32).contiguous()
 
 
+def _suffix64(P, lanes: int, c: _Consts):
+    """Within-block inclusive suffix sums of [16, N] point rows, every
+    `lanes`-lane block independent (Hillis-Steele; lane l absorbs lanes
+    l..lanes-1 of its block, a lane past the end adds the identity)."""
+    N = P[0].shape[1]
+    l_loc = torch.arange(N, device=P[0].device) % lanes
+    for d in range(max(lanes.bit_length() - 1, 1)):
+        sh = 1 << d
+        ok = l_loc + sh < lanes
+        Q = tuple(torch.where(ok, torch.roll(t, -sh, dims=-1), torch.zeros_like(t)) for t in P)
+        P = ec_add64(P, Q, c)
+    return P
+
+
+def bucket_weight_plain(S, lanes: int):
+    """The weighted bucket reduction (see bucket_weight) on merged lanes: slot
+    b - 1 = r * lanes + l, all windows' lane blocks side by side. A
+    descending (acc, tot) pass over the R2 slot rows gives per lane
+      A_l = sum_r S'_{r,l},  tot_l = sum_r (r + 1) * S'_{r,l}
+    and with the within-block suffix scan: T = lanes * (TT - TA) + TS, where
+    TA = suf(A)[0], TS = suf(suf(A))[0], TT = suf(tot)[0]."""
+    Wtot, _, nb = S[0].shape
+    c = _consts(FQ, S[0].device)
+    R2 = -(-nb // lanes)
+    M = Wtot * lanes
+    # rows[r] = [16, M], lane = w * lanes + l; rows descending
+    rows = tuple(
+        torch.nn.functional.pad(t.to(torch.int64), (0, R2 * lanes - nb))
+        .reshape(Wtot, N_LIMBS, R2, lanes).permute(2, 1, 0, 3).reshape(R2, N_LIMBS, M).flip(0)
+        for t in S
+    )
+    zero = torch.zeros((N_LIMBS, M), dtype=torch.int64, device=S[0].device)
+    acc = tot = (zero, zero, zero)
+    for r in range(R2):
+        acc = ec_add64(acc, tuple(t[r] for t in rows), c)
+        tot = ec_add64(tot, acc, c)
+    suf1 = _suffix64(tuple(torch.cat([a, t], dim=1) for a, t in zip(acc, tot)), lanes, c)
+    sufA = tuple(t[:, :M] for t in suf1)
+    TT = tuple(t[:, M::lanes] for t in suf1)
+    TS = tuple(t[:, 0::lanes] for t in _suffix64(sufA, lanes, c))
+    TA = tuple(t[:, 0::lanes] for t in sufA)
+    negTA = (TA[0], sub64(torch.zeros_like(TA[1]), TA[1], c), TA[2])
+    D = ec_add64(TT, negTA, c)
+    for _ in range(lanes.bit_length() - 1):  # * lanes (a power of two)
+        D = ec_double64(D, c)
+    return tuple(t.to(torch.int32) for t in ec_add64(D, TS, c))
+
+
+def msm_combine_plain(T, windows: int, window_bits: int):
+    """The MSB-first window combine (see msm_combine): res = 2^c * res + T_w
+    for w = W - 1 down to 0, all columns at once."""
+    C = T[0].shape[1] // windows
+    c = _consts(FQ, T[0].device)
+    Tw = tuple(t.to(torch.int64).reshape(N_LIMBS, C, windows) for t in T)
+    zero = torch.zeros((N_LIMBS, C), dtype=torch.int64, device=T[0].device)
+    res = (zero, zero, zero)
+    for w in range(windows - 1, -1, -1):
+        for _ in range(window_bits):
+            res = ec_double64(res, c)
+        res = ec_add64(res, tuple(t[..., w] for t in Tw), c)
+    return tuple(t.to(torch.int32) for t in res)
+
+
 # --- wrappers ------------------------------------------------------------------------
 
 
@@ -860,3 +933,74 @@ def bucket_scan(axy, seg_start, distinct: bool):
     _check_rc(rc, "bucket_scan")
     _count("bucket_scan", Wb * R * CL, (tuple(a.shape), bool(distinct)))
     return out
+
+
+# largest lane block bucket_weight takes on the card (one thread per lane)
+BUCKET_WEIGHT_MAX_LANES = 256
+
+
+def bucket_weight(S, lanes: int):
+    """Weighted bucket reduction of Pippenger windows, T_w = sum_b b * S_{w,b}.
+
+    S: bucket sums (X, Y, Z), each int32[Wtot, 16, nbuckets], bucket b at slot
+    b - 1 (identity Z == 0). lanes: CL2, a power of two, the width of the
+    merged-lane blocks (one thread each on the card, at most
+    BUCKET_WEIGHT_MAX_LANES). Returns (X, Y, Z), each int32[16, Wtot]:
+    the point ops of bucket_weight_plain in its order, so the same Jacobian
+    coordinates.
+
+    One launch replaces the lax.scan of _ec_add_kernel calls and the
+    suffix-scan, D and doubling steps of halo2_lib_tpu/ops/ec_device.py:624-674
+    (46 ec_add and 6 ec_double launches per MSM at CL2 = 64): one block per
+    window, the row chain in registers, the scans in shared memory. Bound by
+    each lane's serial chain of 2 * R2 + 3 log2(CL2) complete adds."""
+    if len({tuple(t.shape) for t in S}) != 1 or S[0].dim() != 3 or S[0].shape[1] != N_LIMBS:
+        raise ValueError(f"expected three [Wtot, 16, nb] tensors, got {[t.shape for t in S]}")
+    if lanes < 1 or lanes & (lanes - 1):
+        raise ValueError(f"lanes {lanes} is not a power of two")
+    if _on_cpu(*S):
+        return bucket_weight_plain(S, lanes)
+    if lanes > BUCKET_WEIGHT_MAX_LANES:
+        raise ValueError(f"lanes {lanes} > {BUCKET_WEIGHT_MAX_LANES}")
+    Wtot, _, nb = S[0].shape
+    ins = [t.contiguous() for t in S]
+    outs = [torch.empty((N_LIMBS, Wtot), dtype=torch.int32, device=ins[0].device) for _ in range(3)]
+    if Wtot == 0:
+        return tuple(outs)
+    rc = _lib().h2_bucket_weight(
+        *map(_ptr, ins), *map(_ptr, outs), Wtot, nb, lanes, _stream(outs[0])
+    )
+    _check_rc(rc, "bucket_weight")
+    _count("bucket_weight", Wtot * nb, ((Wtot, N_LIMBS, nb), lanes))
+    return tuple(outs)
+
+
+def msm_combine(T, windows: int, window_bits: int):
+    """Window combine of a Pippenger MSM: res = 2^c * res + T_w for w = W - 1
+    down to 0 (c = window_bits, W = windows), res starting at the identity.
+
+    T: window sums (X, Y, Z), each int32[16, C * W], lane = column * W + w.
+    Returns (X, Y, Z), each int32[16, C].
+
+    One launch replaces the window_step scan of _ec_double_kernel and
+    _ec_add_kernel calls at halo2_lib_tpu/ops/ec_device.py:676-688 (W * c
+    doublings and W adds, 286 launches at W = 26, c = 10): one thread per
+    column with res in registers. Bound by that serial chain (about 2400
+    dependent Montgomery products), not by bytes or total operations."""
+    if len({tuple(t.shape) for t in T}) != 1 or T[0].dim() != 2 or T[0].shape[0] != N_LIMBS:
+        raise ValueError(f"expected three [16, C * W] tensors, got {[t.shape for t in T]}")
+    if windows < 1 or T[0].shape[1] % windows:
+        raise ValueError(f"{T[0].shape[1]} lanes are not C x {windows} windows")
+    if _on_cpu(*T):
+        return msm_combine_plain(T, windows, window_bits)
+    C = T[0].shape[1] // windows
+    ins = [t.contiguous() for t in T]
+    outs = [torch.empty((N_LIMBS, C), dtype=torch.int32, device=ins[0].device) for _ in range(3)]
+    if C == 0:
+        return tuple(outs)
+    rc = _lib().h2_msm_combine(
+        *map(_ptr, ins), *map(_ptr, outs), C, windows, window_bits, _stream(outs[0])
+    )
+    _check_rc(rc, "msm_combine")
+    _count("msm_combine", C * windows * window_bits, ((N_LIMBS, C * windows), windows, window_bits))
+    return tuple(outs)

@@ -5,16 +5,18 @@ commitment. Points are three limb-major ``int32[..., 16, B]`` Montgomery
 tensors over Fq (Jacobian X, Y, Z; identity Z == 0). Point add, double and
 the mixed Jacobian + affine add are the ``ec_add``/``ec_double``/``ec_madd``
 kernels of ops/cuda_field.py; the bucket accumulation is its ``bucket_scan``
-kernel.
+kernel, and the MSM's tail its ``bucket_weight`` and ``msm_combine`` kernels.
 
 The MSM is Pippenger with sort + segmented-scan bucket accumulation:
   * per window: sort the points by digit, run every (window, lane) chain of
     mixed adds in one ``bucket_scan`` launch, fix the lane-boundary carries
     with a small segmented scan and pick each bucket's sum by binary search;
-  * the weighted bucket reduction runs on merged lanes, all windows at once;
-  * the windows combine MSB first by repeated doubling.
-``lax.scan``/``fori_loop`` loops of the JAX package are Python loops of
-kernel launches here.
+  * the weighted bucket reduction runs on merged lanes, all windows at once
+    (one ``bucket_weight`` launch);
+  * the windows combine MSB first by repeated doubling (one ``msm_combine``
+    launch).
+The other ``lax.scan``/``fori_loop`` loops of the JAX package are Python
+loops of kernel launches here.
 """
 
 from __future__ import annotations
@@ -176,7 +178,7 @@ def _scan_lanes(n: int, device) -> int:
     return 16 if _small_cpu(n, device) else 128
 
 
-def _weight_lanes(nbuckets: int, n: int, device) -> int:
+def weight_lanes(nbuckets: int, n: int, device) -> int:
     """Lanes CL2 of the weighted bucket reduction: min(64, buckets rounded up
     to a power of two); for small CPU MSMs a power of two at most
     sqrt(buckets) (2 * R2 row adds and 3 log2(CL2) suffix levels, each over
@@ -184,20 +186,6 @@ def _weight_lanes(nbuckets: int, n: int, device) -> int:
     if _small_cpu(n, device):
         return max(2, 1 << (nbuckets.bit_length() - 1) // 2)
     return min(64, 1 << (max(nbuckets - 1, 1)).bit_length())
-
-
-def _suffix_local(dc: DeviceCurve, Pt, CL2: int):
-    """Within-block inclusive suffix sums on merged lanes: every CL2-lane
-    block is independent; lane l absorbs lanes l..CL2-1 of its block."""
-    M = Pt[0].shape[-1]
-    l_loc = torch.arange(M, device=Pt[0].device) % CL2
-    P = Pt
-    for d in range(max(CL2.bit_length() - 1, 1)):
-        sh = 1 << d
-        ok = l_loc + sh < CL2
-        Q = tuple(_where(ok, torch.roll(t, -sh, dims=-1), torch.zeros_like(t)) for t in P)
-        P = dc._add(P, Q)
-    return P
 
 
 def _pack_pairs(A: torch.Tensor) -> torch.Tensor:
@@ -208,8 +196,8 @@ def _pack_pairs(A: torch.Tensor) -> torch.Tensor:
     return torch.where(v >= 1 << 31, v - (1 << 32), v).to(torch.int32)
 
 
-def _bucket_sums(dc: DeviceCurve, A, order, d_sorted, nbuckets: int, distinct: bool):
-    """Bucket sums for a batch of windows.
+def _group_bucket_sums(dc: DeviceCurve, A, order, d_sorted, nbuckets: int, distinct: bool):
+    """Bucket sums for one group of windows.
 
     A: (Ax, Ay) limb-major [16, nb] affine bases (Montgomery; (0, 0) =
     identity). order/d_sorted: [Wb, n] sorted digit order per window.
@@ -288,8 +276,9 @@ def _bucket_sums(dc: DeviceCurve, A, order, d_sorted, nbuckets: int, distinct: b
     return bX, bY, bZ
 
 
-def _msm_from_digits(dc: DeviceCurve, A, digits: torch.Tensor, window_bits: int, distinct: bool):
-    """Core MSM: affine bases + per-column window digits -> [16, C] Jacobian.
+def bucket_sums(dc: DeviceCurve, A, digits: torch.Tensor, window_bits: int, distinct: bool):
+    """Bucket sums of every window of every column: int32[C * W, 16, nbuckets]
+    (X, Y, Z), window w of column i at row i * W + w, bucket b at slot b - 1.
 
     digits: int[C, W, n]. All C*W windows share one sort and are
     bucket-accumulated in memory-budgeted groups."""
@@ -303,53 +292,22 @@ def _msm_from_digits(dc: DeviceCurve, A, digits: torch.Tensor, window_bits: int,
     good = [g for g in divs if g % 4 == 0] or divs or [1]
     group = Wtot if Wtot * n <= _MSM_GROUP_SLOTS else max(good)
     parts = [
-        _bucket_sums(dc, A, order[i : i + group], d_sorted[i : i + group], nbuckets, distinct)
+        _group_bucket_sums(dc, A, order[i : i + group], d_sorted[i : i + group], nbuckets, distinct)
         for i in range(0, Wtot, group)
     ]
-    bX, bY, bZ = (torch.cat([p[j] for p in parts], dim=0) for j in range(3))
+    return tuple(torch.cat([p[j] for p in parts], dim=0) for j in range(3))
 
-    # weighted bucket reduction T_w = sum_b b * S_b on merged lanes: slot
-    # b-1 = r*CL2 + l, all windows' CL2-lane blocks side by side. A
-    # descending (acc, total) pass over the R2 slot rows gives per lane
-    #   A_l = sum_r S'_{r,l},  tot_l = sum_r (r+1) * S'_{r,l}
-    # and with the within-block suffix scan: T = CL2*(TT - TA) + TS, where
-    # TA = suf(A)[0], TS = suf(suf(A))[0], TT = suf(tot)[0].
-    CL2 = _weight_lanes(nbuckets, n, digits.device)
-    R2 = -(-nbuckets // CL2)
-    pad = R2 * CL2 - nbuckets
-    M = Wtot * CL2
-    S = tuple(
-        torch.nn.functional.pad(t, (0, pad)).reshape(Wtot, N_LIMBS, R2, CL2) for t in (bX, bY, bZ)
-    )
-    # merged rows: S_rows[r] = [16, Wtot*CL2], lane = w*CL2 + l; rows descending
-    S_rows = tuple(t.permute(2, 1, 0, 3).reshape(R2, N_LIMBS, M).flip(0) for t in S)
-    acc = tot = dc.identity((M,), digits.device)
-    for r in range(R2):
-        acc = dc._add(acc, tuple(t[r] for t in S_rows))
-        tot = dc._add(tot, acc)
 
-    both = tuple(torch.cat([a, t], dim=-1) for a, t in zip(acc, tot))
-    suf1 = _suffix_local(dc, both, CL2)
-    sufA = tuple(t[..., :M] for t in suf1)
-    sufT = tuple(t[..., M:] for t in suf1)
-    suf2 = _suffix_local(dc, sufA, CL2)
-    TA = tuple(t[..., 0::CL2] for t in sufA)  # [16, Wtot]
-    TT = tuple(t[..., 0::CL2] for t in sufT)
-    TS = tuple(t[..., 0::CL2] for t in suf2)
-    negTA = (TA[0], dc.df._neg(TA[1]), TA[2])
-    D = dc._add(TT, negTA)
-    for _ in range(CL2.bit_length() - 1):  # * CL2 (a power of two)
-        D = dc._double(D)
-    tX, tY, tZ = dc._add(D, TS)  # [16, Wtot]
+def _msm_from_digits(dc: DeviceCurve, A, digits: torch.Tensor, window_bits: int, distinct: bool):
+    """Core MSM: affine bases + per-column window digits -> [16, C] Jacobian.
 
-    # combine windows MSB first across all C columns at once
-    res = dc.identity((C,), digits.device)
-    for w in range(W - 1, -1, -1):
-        for _ in range(window_bits):
-            res = dc._double(res)
-        Pw = tuple(t.reshape(N_LIMBS, C, W)[..., w] for t in (tX, tY, tZ))
-        res = dc._add(res, Pw)
-    return res
+    The weighted bucket reduction T_w = sum_b b * S_b (bucket_weight, on
+    blocks of CL2 merged lanes) gives [16, C * W] window sums; the windows
+    combine MSB first across all C columns (msm_combine)."""
+    _, W, n = digits.shape
+    S = bucket_sums(dc, A, digits, window_bits, distinct)
+    T = cf.bucket_weight(S, weight_lanes(S[0].shape[-1], n, digits.device))
+    return cf.msm_combine(T, W, window_bits)
 
 
 @torch.inference_mode()

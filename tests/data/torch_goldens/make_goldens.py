@@ -15,7 +15,9 @@ itself,
 * ``ec_digests.json``: the SHA-256 of the JAX package's Jacobian complete
   add (``DeviceCurve._add_xla``) and double (``_double_xla``) on the points
   of ``ec_case_points``, every special case of the add included, and of its
-  mixed add (``_madd_xla``, both ``distinct`` values) on ``madd_case_points``;
+  mixed add (``_madd_xla``, both ``distinct`` values) on ``madd_case_points``,
+  and of the MSM tail of ``_msm_from_digits`` (window sums and combined
+  result) on the bucket sums of ``msm_tail_case_points``;
 * ``slice_k15.json`` (with ``--k15``): the SHA-256 of the JAX proof of the
   k=15 slice circuit at seed 0, which ``chip_smoke.py`` compares with;
 * ``ecdsa_k15.json`` (with ``--ecdsa``): the SHA-256 of the vk and of the
@@ -212,10 +214,72 @@ def freeze_ec() -> None:
     A2 = tuple(dc.df.pack(c) for c in base)
     for key, distinct in (("madd", False), ("madd_distinct", True)):
         out[key] = digest(jax.jit(dc._madd_xla, static_argnums=2)(P1, A2, distinct))
+    out.update(msm_tail_digests(dc, digest))
     with open(os.path.join(HERE, "ec_digests.json"), "w") as f:
         json.dump(out, f, indent=1)
         f.write("\n")
     print("ec_digests", flush=True)
+
+
+def msm_tail_case_points():
+    """Bucket sums for the MSM tail digests: C = 3 columns x W = 3 windows of
+    c = 8 bits (255 buckets; 64 weight lanes of 4 rows), as (C, W, c, host
+    points [C * W][255] with None = empty, Jacobian (X, Y, Z) int lists with
+    a random Z per point, window w of column i at row i * W + w) from a fixed
+    seed. About a fifth of the buckets are empty. Window 0's lanes 0-2 meet
+    the row chain's special cases (acc + row doubles, tot + acc doubles, acc +
+    row = P + (-P)); window 1 holds one point in each of lanes 0-3, so the
+    suffix scan's first level adds P + (-P) and P + P.
+    tests/test_torch_msm_tail.py makes the same ones."""
+    from halo2_lib_tpu.utils.curves import BN254_G1
+
+    q = BN254_G1.base.p
+    C, W, c = 3, 3, 8
+    nb = (1 << c) - 1
+    rng = random.Random(21)
+    pool = [BN254_G1.random_point(rng) for _ in range(12)]
+    pts = [
+        [None if rng.random() < 0.2 else rng.choice(pool) for _ in range(nb)] for _ in range(C * W)
+    ]
+    P = pool[0]
+    nP = (P[0], q - P[1])
+    # lane l's slot in the top row (192 + l), then the one below it
+    for l, (a, b) in enumerate([(P, P), (P, None), (P, nP)]):
+        pts[0][192 + l], pts[0][128 + l] = a, b
+    pts[1] = [None] * nb
+    for l, a in enumerate([P, nP, P, P]):
+        pts[1][192 + l] = a
+    jac = []
+    for pt in (p for w in pts for p in w):
+        z = rng.randrange(1, q)
+        jac.append((0, 0, 0) if pt is None else (pt[0] * z * z % q, pt[1] * z**3 % q, z))
+    return C, W, c, pts, [list(v) for v in zip(*jac)]
+
+
+def msm_tail_digests(dc, digest) -> dict:
+    """The JAX MSM's tail (_msm_from_digits after its bucket accumulation:
+    the merged-lane weighted bucket reduction and the MSB-first window
+    combine) on the bucket sums of msm_tail_case_points, given to it in place
+    of _bucket_sums' output. ``msm_tail_window_sums``: the window sums T
+    [16, C * W], read as the combine of C * W one-window columns (c doublings
+    of the identity, then + T_w, which is T_w); ``msm_tail``: the combined
+    [16, C] result."""
+    import jax.numpy as jnp
+
+    from halo2_lib_tpu.ops import ec_device as jed
+
+    C, W, c, _, jac = msm_tail_case_points()
+    nb = (1 << c) - 1
+    S = tuple(jnp.transpose(dc.df.pack(v).reshape(16, C * W, nb), (1, 0, 2)) for v in jac)
+    real = jed._bucket_sums
+    jed._bucket_sums = lambda *args: S
+    try:
+        n = 8
+        T = jed._msm_from_digits(dc, None, jnp.zeros((C * W, 1, n), jnp.int32), c, False)
+        res = jed._msm_from_digits(dc, None, jnp.zeros((C, W, n), jnp.int32), c, False)
+    finally:
+        jed._bucket_sums = real
+    return {"msm_tail_window_sums": digest(T), "msm_tail": digest(res)}
 
 
 def madd_case_points():

@@ -125,6 +125,62 @@ def test_bucket_scan(dev, distinct):
     assert torch.equal(got, cf.bucket_scan_plain(axy, start, distinct))
 
 
+def _special_lanes(S):
+    """Random Jacobian coordinates S (three [.., 16, B]) with identities,
+    copies of the lane before (equal points: the doubling branch) and
+    negations of it (P + (-P)) on every few lanes."""
+    X, Y, Z = (t.clone() for t in S)
+    B = X.shape[-1]
+    Z[..., 3::7] = 0
+    for t in (X, Y, Z):
+        t[..., 5::7] = t[..., 4::7][..., : t[..., 5::7].shape[-1]]
+    X[..., 2::7] = X[..., 1::7][..., : X[..., 2::7].shape[-1]]
+    Z[..., 2::7] = Z[..., 1::7][..., : Z[..., 2::7].shape[-1]]
+    negY = cf.field_sub_plain(cf.FQ, torch.zeros_like(Y), Y)
+    Y[..., 2::7] = negY[..., 1::7][..., : Y[..., 2::7].shape[-1]]
+    return X, Y, Z
+
+
+@pytest.mark.parametrize("CL2, nb, Wtot", [(2, 7, 13), (8, 255, 7), (64, 1023, 11)])
+def test_bucket_weight(dev, CL2, nb, Wtot):
+    gen = torch.Generator().manual_seed(CL2)
+    S = _special_lanes([_rand((Wtot, 16, nb), FQ_BN254.p, gen, dev) for _ in range(3)])
+    cf.reset_launches()
+    got = cf.bucket_weight(S, CL2)
+    assert cf.LAUNCHES["bucket_weight"] == 1
+    for k, pl in zip(got, cf.bucket_weight_plain(S, CL2)):
+        assert torch.equal(k, pl)
+
+
+def _combine_specials(T, W: int, c: int):
+    """Column 0 meets res == T_{W-2} after its c doublings (the doubling
+    branch); the last column, where C > 1, res == -T_{W-2} (the identity)."""
+    C = T[0].shape[-1] // W
+    top = tuple(t[:, W - 1 : W] for t in T)
+    D = top
+    for _ in range(c):
+        D = cf.ec_double_plain(D)
+    negD = (D[0], cf.field_sub_plain(cf.FQ, torch.zeros_like(D[1]), D[1]), D[2])
+    for t, p, d, nd in zip(T, top, D, negD):
+        t[:, W - 2 : W - 1] = d
+        if C > 1:
+            t[:, C * W - 1 : C * W] = p
+            t[:, C * W - 2 : C * W - 1] = nd
+
+
+@pytest.mark.parametrize("C", [1, 42])
+def test_msm_combine(dev, C):
+    W, c = 26, 10
+    gen = torch.Generator().manual_seed(C)
+    T = _special_lanes([_rand((16, C * W), FQ_BN254.p, gen, dev) for _ in range(3)])
+    _combine_specials(T, W, c)
+    cf.reset_launches()
+    got = cf.msm_combine(T, W, c)
+    assert cf.LAUNCHES["msm_combine"] == 1
+    for k, pl in zip(got, cf.msm_combine_plain(T, W, c)):
+        assert torch.equal(k, pl)
+
+
 def test_msm_on_the_card_matches_cpu(dev):
     rng = random.Random(6)
     dc = DeviceCurve(DeviceField(BN254_G1.base), BN254_G1)
@@ -137,7 +193,9 @@ def test_msm_on_the_card_matches_cpu(dev):
     cf.reset_launches()
     got = dc.unpack_points(msm_many_device(dc, A_dev, digits.to(dev), 8))
     assert got == want
-    assert cf.LAUNCHES["bucket_scan"] == 1 and cf.LAUNCHES["ec_double"] > 0
+    # the tail runs as the two fused kernels, no single doubling
+    assert cf.LAUNCHES["bucket_scan"] == 1 and cf.LAUNCHES["ec_double"] == 0
+    assert cf.LAUNCHES["bucket_weight"] == 1 and cf.LAUNCHES["msm_combine"] == 1
 
 
 def test_small_commit_on_the_card_takes_ec_madd(dev):
