@@ -13,18 +13,25 @@ printing its own lines; any failure raises and exits non-zero:
              both `distinct` values; the MSM tail's bucket_weight at 2, 8 and
              64 lanes with empty, repeated and inverse bucket sums, and
              msm_combine at 1 and 42 columns with a doubling and an identity
-             lane).
+             lane; bucket_sums_fused at 8, 16 and 256 lanes and a ragged
+             window count, with a run across many lanes, one bucket filling a
+             window, dead windows (digit 0), buckets below every digit, P + P
+             (distinct False) and P + (-P) in a run, and also against the
+             composition it replaced (bucket_scan, the lane-carry scan of
+             single ec_add launches, the pick and the fix; kept here, not in
+             the package); colntt at A = 2..1024, with and without the mid,
+             ragged B, tw[0] random and the Montgomery one).
 3. k=9     - keygen + create_proof of the golden circuit; the vk and proof
              bytes must equal the JAX package's goldens in
              tests/data/torch_goldens/. Its domains (2^9, 2^11) take the
              radix-2 NTT (ntt_butterfly), and its commits (m = 2^9 <= 1024)
-             the double-and-add through ec_madd, never bucket_scan. Then one
+             the double-and-add through ec_madd, never Pippenger. Then one
              k=9 commit is timed both ways (double-and-add, Pippenger).
 4. k=15    - keygen -> create_proof -> verify_proof of the slice circuit (4
              advice + 1 lookup column, every column 2^15 rows), with a
              tampered proof rejected and the proof's SHA-256 held against the
              JAX digest. Its domains (2^15, 2^17) take the four-step NTT
-             (colntt) and its commits Pippenger (bucket_scan).
+             (colntt) and its commits Pippenger (bucket_sums_fused).
 4b. ECDSA  - the main path at full width: the repo's secp256k1 ECDSA-verify
              circuit (bench.py's, 18 advice + 3 lookup-advice + 1 fixed
              column at k=15): keygen, then the pinned prover builder's
@@ -34,19 +41,29 @@ printing its own lines; any failure raises and exits non-zero:
              Kernel launch counts are reset just before phases 3, 4 and 4b
              and read just after each; every kernel must have launched in the
              phases whose paths run it: k=9 every kernel but colntt and the
-             Pippenger ones (bucket_scan, bucket_weight, msm_combine); k=15
-             and ECDSA every kernel but ntt_butterfly, ec_madd and ec_double,
-             and ec_double not at all (the MSM's tail is the two fused
-             kernels, one launch each per MSM call).
-5. timing  - every kernel again, at the largest shapes the main path gave it:
-             kernel time, plain version time and the bound, as one JSON line.
+             Pippenger ones (bucket_scan, bucket_sums_fused, bucket_weight,
+             msm_combine); k=15 and ECDSA every kernel but ntt_butterfly,
+             ec_madd, ec_double, ec_add and bucket_scan, and those last three
+             not at all (the MSM is bucket_sums_fused, bucket_weight and
+             msm_combine, one launch each per MSM call).
+5. timing  - every kernel again, at the largest shapes the main path gave it
+             (bucket_scan, no longer on the path, at the shape it had on the
+             ECDSA run before the fusion): kernel time, plain version time
+             and the bound, as one JSON line.
 5b. MSM    - one whole MSM at the ECDSA advice commit's shape (21 columns x
              2^15 points, window 10, distinct bases), in turns old, new, new,
-             old: "old" ends in the loop of single ec_add / ec_double
-             launches that the two fused kernels replace (kept here, not in
-             the package), "new" is msm_many_device; both must give the same
-             Jacobian points. Whole-MSM and tail-only milliseconds of each
-             turn, and ec_add at [16, 139776], the old tail's largest shape.
+             old: "old" accumulates the buckets by the bucket_scan composition
+             (grouped as before, 91 windows a group), "new" is
+             msm_many_device (bucket_sums_fused); both end in the fused tail
+             and must give the same bucket sums and Jacobian points. Whole-MSM
+             milliseconds and each stage's (CUDA events: sort, gather, scan,
+             carry, pick; or sort, pack, fused) per turn; then the step-loop
+             tail (the loop of single point ops) against the fused one
+             (equal points, both timed), ec_add at [16, 139776], and the
+             Montgomery product alone: a
+             chain of dependent products per thread with the carry-chain
+             product and with the 64-bit C one it replaced (products/s of
+             each, in turns, outputs equal).
 
 The last line is {"ok": true, "device": {...}}. Without a CUDA device the
 script exits non-zero and prints no result.
@@ -83,12 +100,18 @@ SOURCES = {
     "ec_double": ("csrc/ec_kernels.cu", "halo2_lib_tpu/ops/pallas_field.py:448"),
     "ec_madd": ("csrc/ec_kernels.cu", "halo2_lib_tpu/ops/pallas_field.py:430"),
     "bucket_scan": ("csrc/ec_kernels.cu", "halo2_lib_tpu/ops/pallas_field.py:620"),
+    # the bucket accumulation with its lane-carry scan, pick and fix
+    # (ec_device.py:463-591 around _bucket_scan_kernel)
+    "bucket_sums_fused": ("csrc/ec_kernels.cu", "halo2_lib_tpu/ops/pallas_field.py:620"),
     # the fused MSM tail: the lax.scan / fori_loop bodies of single
     # _ec_add_kernel / _ec_double_kernel calls at ec_device.py:624-688
     "bucket_weight": ("csrc/ec_kernels.cu", "halo2_lib_tpu/ops/pallas_field.py:304"),
     "msm_combine": ("csrc/ec_kernels.cu", "halo2_lib_tpu/ops/pallas_field.py:448"),
 }
+# kernels the main path no longer launches: (work, shape) as LARGEST keeps them
+OFF_PATH_SHAPES = {"bucket_scan": (0, ((91, 128, 16, 256), True))}
 FUSES = {
+    "bucket_sums_fused": "halo2_lib_tpu/ops/ec_device.py:463-591",
     "bucket_weight": "halo2_lib_tpu/ops/ec_device.py:624-674",
     "msm_combine": "halo2_lib_tpu/ops/ec_device.py:676-688",
 }
@@ -143,6 +166,167 @@ def combine_specials(T, W: int, c: int, cf, torch):
             t[:, C * W - 2 : C * W - 1] = nd
 
 
+class Stages:
+    """CUDA-event stage timer: mark(name) closes the stage that began at the
+    previous mark; ms() reads them after a synchronize."""
+
+    def __init__(self, torch):
+        self.torch = torch
+        self.events = [(None, self._record())]
+
+    def _record(self):
+        e = self.torch.cuda.Event(enable_timing=True)
+        e.record()
+        return e
+
+    def mark(self, name: str) -> None:
+        self.events.append((name, self._record()))
+
+    def ms(self) -> dict:
+        self.torch.cuda.synchronize()
+        out = {}
+        for (_, a), (name, b) in zip(self.events, self.events[1:]):
+            out[name] = out.get(name, 0.0) + a.elapsed_time(b)
+        return out
+
+
+def old_seg_scan(cf, torch, X, Y, Z, flag, width: int):
+    """The lane-carry scan before the fusion: Hillis-Steele levels of single
+    ec_add launches and torch rolls and selects (ops/ec_device.py before
+    the fusion)."""
+    idx = torch.arange(X.shape[-1], device=X.device) % width
+    x, y, z, f = X, Y, Z, flag
+    for d in range((width - 1).bit_length()):
+        shift = 1 << d
+        px, py, pz = (torch.roll(t, shift, dims=-1) for t in (x, y, z))
+        pf = torch.roll(f, shift, dims=-1)
+        s = cf.ec_add((x, y, z), (px, py, pz))
+        use = (~f) & (idx >= shift)
+        x, y, z = (torch.where(use[..., None, :], a, b) for a, b in zip(s, (x, y, z)))
+        f = f | (use & pf) | (idx < shift)
+    return x, y, z
+
+
+def old_group_bucket_sums(cf, torch, A, order, d_sorted, nbuckets: int, distinct: bool, CL: int,
+                          st=None):
+    """The bucket accumulation before the fusion (ops/ec_device.py,
+    _group_bucket_sums before the fusion): the packed gather of the bases into the
+    [Wb, R, 16, CL] scan layout, one bucket_scan launch writing every step,
+    the lane-carry scan, the binary-search pick of each bucket's last slot
+    and one ec_add for the buckets whose run began in an earlier lane. `st`
+    (a Stages) marks gather, scan, carry and pick."""
+    Ax, Ay = A
+    dev = Ax.device
+    Wb, n = d_sorted.shape
+    R = n // CL
+    mark = st.mark if st is not None else (lambda name: None)
+    order, d_sorted = order.to(torch.int64), d_sorted.to(torch.int64)
+    seg_start = torch.cat(
+        [torch.ones((Wb, 1), dtype=torch.bool, device=dev), d_sorted[:, 1:] != d_sorted[:, :-1]],
+        dim=1,
+    )
+    live = d_sorted > 0
+
+    def pack_pairs(t):
+        v = t[:8].to(torch.int64) | (t[8:].to(torch.int64) << 16)
+        return torch.where(v >= 1 << 31, v - (1 << 32), v).to(torch.int32)
+
+    Axy = torch.cat([pack_pairs(Ax), pack_pairs(Ay)], dim=0)
+    order_perm = order.reshape(Wb, CL, R).transpose(1, 2)
+    g = Axy[:, order_perm.reshape(-1)].reshape(16, Wb, R, CL)
+    live_perm = live.reshape(Wb, CL, R).transpose(1, 2)
+    g = torch.where(live_perm[None], g, torch.zeros_like(g))
+    axy = g.permute(1, 2, 0, 3).contiguous()
+    sst = seg_start.reshape(Wb, CL, R).transpose(1, 2).to(torch.int32).contiguous()
+    mark("gather")
+    out = cf.bucket_scan(axy, sst, distinct)
+    mark("scan")
+    last = out[:, R - 1]
+    lastv = tuple(last[:, 16 * i : 16 * (i + 1), :] for i in range(3))
+    has_start = seg_start.reshape(Wb, CL, R).any(dim=2)
+    lastm = tuple(t.transpose(0, 1).reshape(16, Wb * CL) for t in lastv)
+    cm = old_seg_scan(cf, torch, *lastm, has_start.reshape(Wb * CL), CL)
+    zero = torch.zeros((Wb, 16, 1), dtype=torch.int32, device=dev)
+    cx, cy, cz = (
+        torch.cat([zero, t.reshape(16, Wb, CL).transpose(0, 1)[..., :-1]], dim=-1) for t in cm
+    )
+    mark("carry")
+    targets = torch.arange(1, nbuckets + 1, device=dev, dtype=d_sorted.dtype)
+    targets = targets.expand(Wb, nbuckets).contiguous()
+    last_idx = torch.searchsorted(d_sorted, targets, right=True) - 1
+    first_idx = torch.searchsorted(d_sorted, targets, right=False)
+    present = last_idx >= first_idx
+    safe_idx = last_idx.clamp(0, n - 1)
+    lane = safe_idx // R
+    idx_r = safe_idx % R
+    cols = torch.arange(48, device=dev)
+    lin = (idx_r[:, None, :] * 48 + cols[None, :, None]) * CL + lane[:, None, :]
+    vals = torch.gather(out.reshape(Wb, R * 48 * CL), 1, lin.reshape(Wb, -1))
+    vals = vals.reshape(Wb, 48, nbuckets)
+    bX, bY, bZ = vals[:, :16], vals[:, 16:32], vals[:, 32:]
+    wi, bi = torch.nonzero(first_idx < lane * R, as_tuple=True)
+    li = lane[wi, bi]
+    fixed = cf.ec_add(
+        tuple(t[wi, :, bi].T for t in (bX, bY, bZ)),
+        tuple(t[wi, :, li].T for t in (cx, cy, cz)),
+    )
+    bX, bY, bZ = (t.clone() for t in (bX, bY, bZ))
+    for t, f in zip((bX, bY, bZ), fixed):
+        t[wi, :, bi] = f.T
+    bZ = torch.where(present[:, None, :], bZ, torch.zeros_like(bZ))
+    mark("pick")
+    return bX, bY, bZ
+
+
+def old_bucket_sums(cf, torch, A, digits, window_bits: int, distinct: bool, CL: int, st=None):
+    """ops/ec_device.py:bucket_sums before the fusion: one sort, then groups of
+    windows within 2^22 point-slots (91 windows a group at n = 2^15)."""
+    C, W, n = digits.shape
+    nbuckets = (1 << window_bits) - 1
+    flat = digits.reshape(C * W, n).to(torch.int64)
+    d_sorted, order = torch.sort(flat, dim=1, stable=True)
+    if st is not None:
+        st.mark("sort")
+    Wtot = C * W
+    divs = [g for g in range(1, Wtot + 1) if Wtot % g == 0 and g * n <= 1 << 22]
+    good = [g for g in divs if g % 4 == 0] or divs or [1]
+    group = Wtot if Wtot * n <= 1 << 22 else max(good)
+    parts = [
+        old_group_bucket_sums(cf, torch, A, order[i : i + group], d_sorted[i : i + group],
+                              nbuckets, distinct, CL, st)
+        for i in range(0, Wtot, group)
+    ]
+    return tuple(torch.cat([p[j] for p in parts], dim=0) for j in range(3))
+
+
+def bucket_case(gen, torch, cf, spec, p: int, special: bool):
+    """Inputs of bucket_sums_fused at spec ((Wtot, n), (npts, 16), lanes,
+    nbuckets, distinct): random canonical Fq bases (point-major words) and
+    random window digits, sorted. With `special`, windows 0-5 hold: bases 0
+    and 1 (equal: P + P) alone in bucket 5; bases 0 and 2 (P, -P) alone in
+    bucket 6; every digit 0; one bucket everywhere; a run of n/2 slots in
+    bucket 1 between digits >= 3; no digit below 4. Returns (args, A) with A
+    the limb-major affine bases."""
+    (Wtot, n), (npts, _), lanes, nb, distinct = spec
+    Ax, Ay = (rand_limbs(gen, (16, npts), torch, p) for _ in range(2))
+    digits = torch.randint(0, nb + 1, (Wtot, n), generator=gen, device="cuda", dtype=torch.int32)
+    if special:
+        Ax[:, 1], Ay[:, 1] = Ax[:, 0], Ay[:, 0]
+        Ax[:, 2] = Ax[:, 0]
+        Ay[:, 2:3] = cf.field_sub_plain(cf.FQ, torch.zeros_like(Ay[:, :1]), Ay[:, :1])
+        digits[0][digits[0] == 5] = 4
+        digits[0, :2] = 5
+        digits[1][digits[1] == 6] = 7
+        digits[1, 0] = digits[1, 2] = 6
+        digits[2] = 0
+        digits[3] = min(nb, 7)
+        digits[4] = torch.where(digits[4] < 3, 3, digits[4])
+        digits[4, n // 4 : 3 * n // 4] = 1
+        digits[5] = torch.clamp(digits[5], min=min(nb, 4))
+    d_sorted, order = torch.sort(digits, dim=1, stable=True)
+    return (cf.pack_bases(Ax, Ay), order.to(torch.int32), d_sorted, lanes, nb, distinct), (Ax, Ay)
+
+
 def main() -> None:
     import torch
 
@@ -160,7 +344,7 @@ def main() -> None:
     from halo2_lib_tpu_torch.backend.verifier import verify_proof
     from halo2_lib_tpu_torch.ops import cuda_field as cf
     from halo2_lib_tpu_torch.ops.ec_device import (
-        bucket_sums, msm_many_device, msm_window_bits, weight_lanes,
+        _scan_lanes, msm_many_device, msm_window_bits, weight_lanes,
     )
     from halo2_lib_tpu_torch.ops.limbs import DeviceField
     from halo2_lib_tpu_torch.utils.fields import FQ_BN254, FR_BN254
@@ -251,6 +435,8 @@ def main() -> None:
             axy = torch.where(dead, torch.zeros_like(axy), axy)
             start = (torch.rand((Wb, R, CL), generator=gen, device="cuda") < 1 / 16).to(torch.int32)
             return cf.FQ, (axy, start, bool(distinct))
+        if name == "bucket_sums_fused":
+            return cf.FQ, bucket_case(gen, torch, cf, spec, P[cf.FQ], special=True)[0]
         if name == "bucket_weight":
             shape, lanes = spec
             S = [rand_limbs(gen, shape, torch, P[cf.FQ]) for _ in range(3)]
@@ -285,7 +471,7 @@ def main() -> None:
             return (cf.ec_madd_plain if plain else cf.ec_madd)(*args)
         if name == "bucket_scan":
             return ((cf.bucket_scan_plain if plain else cf.bucket_scan)(*args),)
-        if name in ("bucket_weight", "msm_combine"):
+        if name in ("bucket_sums_fused", "bucket_weight", "msm_combine"):
             return getattr(cf, f"{name}_plain" if plain else name)(*args)
         raise KeyError(name)
 
@@ -316,6 +502,7 @@ def main() -> None:
         "ec_double": ((2, 16, 1000),),
         "ec_madd": ((3, 16, 1000), (16, 1000), False),
         "bucket_scan": ((6, 5, 16, 33), False),
+        "bucket_sums_fused": ((7, 512), (512, 16), 16, 63, False),
         "bucket_weight": ((13, 16, 7), 2),
         "msm_combine": ((16, 26), 26, 10),
     }
@@ -328,9 +515,39 @@ def main() -> None:
         log(f"[kernels] ec_madd at {spec}: kernel == plain (max |diff| 0)")
     check("bucket_scan", ((6, 5, 16, 33), True))
     log("[kernels] bucket_scan (distinct) at (6, 5, 16, 33): kernel == plain (max |diff| 0)")
-    for spec in (((2, 2, 16, 1000), True), ((1, 8, 16, 333), False), ((5, 32, 16, 1), False)):
+    for spec in (((2, 2, 16, 1000), True), ((1, 8, 16, 333), False), ((5, 32, 16, 1), False),
+                 ((2, 4, 16, 50), True), ((2, 16, 16, 40), True), ((2, 64, 16, 70), False),
+                 ((1, 256, 16, 40), True), ((1, 1024, 16, 5), True)):
         check("colntt", spec)
         log(f"[kernels] colntt at {spec}: kernel == plain (max |diff| 0)")
+    # tw[0] the Montgomery one, as the NTT's tables have it: the kernel skips
+    # the products by it
+    mont_one = torch.tensor([((1 << 256) % P[cf.FR] >> (16 * i)) & 0xFFFF for i in range(16)],
+                            dtype=torch.int32, device="cuda")
+    for spec in (((3, 128, 16, 77), True), ((2, 8, 16, 300), False)):
+        _, (x, tw, mid) = make_inputs("colntt", spec)
+        tw[:, 0] = mont_one
+        err = max_err(run("colntt", cf.FR, (x, tw, mid), False), run("colntt", cf.FR, (x, tw, mid), True))
+        if err:
+            raise AssertionError(f"colntt (tw[0] = 1) at {spec} disagrees with its plain version")
+        log(f"[kernels] colntt (tw[0] = 1) at {spec}: kernel == plain (max |diff| 0)")
+    # the fused bucket accumulation: the special windows at 8, 16 and 256
+    # lanes, both distinct values, ragged window counts; then against the
+    # composition it replaced (bucket_scan, lane-carry scan, pick, fix)
+    for spec in (((7, 512), (512, 16), 8, 63, True), ((9, 4096), (4096, 16), 256, 1023, False),
+                 ((13, 4096), (4096, 16), 256, 1023, True)):
+        check("bucket_sums_fused", spec)
+        log(f"[kernels] bucket_sums_fused at {spec}: kernel == plain (max |diff| 0)")
+    for spec in (((7, 512), (512, 16), 16, 63, False), ((11, 4096), (4096, 16), 256, 1023, True),
+                 ((6, 4096), (4096, 16), 256, 1023, False)):
+        args, A = bucket_case(gen, torch, cf, spec, P[cf.FQ], special=True)
+        order, d_sorted, lanes, nb, distinct = args[1:]
+        got = cf.bucket_sums_fused(*args)
+        want = old_group_bucket_sums(cf, torch, A, order, d_sorted, nb, distinct, lanes)
+        err = max_err(got, want)
+        if err:
+            raise AssertionError(f"bucket_sums_fused at {spec} differs from the old composition")
+        log(f"[kernels] bucket_sums_fused at {spec}: == the bucket_scan composition (max |diff| 0)")
     # the fused MSM tail: CL2 = 8 and 64 lanes (the card's) at ragged window
     # counts, and 42 columns of 26 windows (the ECDSA path's widest commit)
     for name, spec in (("bucket_weight", ((7, 16, 255), 8)),
@@ -407,7 +624,7 @@ def main() -> None:
         raise AssertionError("k=9 commit: double-and-add and Pippenger disagree")
     ms_dna, ms_pip = time_ms(commit_dna, 3), time_ms(commit_pippenger, 3)
     log(f"[k=9] one commit of {C9} columns x {m9} points: double-and-add (ec_madd) "
-        f"{ms_dna:.3f} ms, Pippenger (bucket_scan, window {wb9}) {ms_pip:.3f} ms; equal")
+        f"{ms_dna:.3f} ms, Pippenger (bucket_sums_fused, window {wb9}) {ms_pip:.3f} ms; equal")
 
     # --- 4. k=15 slice circuit -------------------------------------------------------------
     t = time.time()
@@ -510,19 +727,23 @@ def main() -> None:
 
     # k=9 runs the radix-2 butterfly and commits by double-and-add (ec_double
     # and ec_madd); k=15 runs the four-step colntt and commits by Pippenger
-    # (bucket_scan, then the fused tail: bucket_weight and msm_combine once
-    # per MSM call, no single doubling); every other kernel runs at both sizes
-    pippenger = ("bucket_scan", "bucket_weight", "msm_combine")
+    # (bucket_sums_fused, then the fused tail: bucket_weight and msm_combine,
+    # one launch each per MSM call; no single add, doubling or bucket_scan);
+    # every other kernel runs at both sizes
+    pippenger = ("bucket_scan", "bucket_sums_fused", "bucket_weight", "msm_combine")
     missing = [k for k in cf.KERNELS if k not in ("colntt", *pippenger) and launches9[k] == 0]
     for name, counts in (("k=15", launches15), ("ecdsa", launches_e)):
+        never = ("ec_double", "ec_add", "bucket_scan")
         missing += [
             f"{k} ({name})" for k in cf.KERNELS
-            if k not in ("ntt_butterfly", "ec_madd", "ec_double") and counts[k] == 0
+            if k not in ("ntt_butterfly", "ec_madd", *never) and counts[k] == 0
         ]
-        if counts["ec_double"] != 0 or counts["bucket_weight"] != counts["msm_combine"]:
+        per_call = {counts[k] for k in ("bucket_sums_fused", "bucket_weight", "msm_combine")}
+        if any(counts[k] for k in never) or len(per_call) != 1:
             raise AssertionError(
-                f"{name}: ec_double {counts['ec_double']} launches (want 0), bucket_weight "
-                f"{counts['bucket_weight']} and msm_combine {counts['msm_combine']} (want equal)"
+                f"{name}: " + ", ".join(f"{k} {counts[k]}" for k in never) + " launches (want 0); "
+                + ", ".join(f"{k} {counts[k]}" for k in ("bucket_sums_fused", "bucket_weight",
+                                                          "msm_combine")) + " (want equal)"
             )
     if missing:
         raise AssertionError(f"kernels not launched on the main path: {missing}")
@@ -584,6 +805,14 @@ def main() -> None:
             # W * c doublings and W - 1 adds (the first meets the identity)
             nbytes = 3 * 64 * (CW + C)
             ops = C * (7 * W * c + 16 * (W - 1)) * MM_OPS
+        elif name == "bucket_sums_fused":
+            (Wtot, n), (npts, _), _, nb, distinct = spec
+            # the packed bases once, the sorted order and digits once, the
+            # bucket sums written once; a mixed add for every live slot of
+            # this run's digits (dead slots add nothing; the carry scan's adds
+            # are this design's, not the function's)
+            nbytes = 64 * npts + 8 * Wtot * n + 3 * 64 * Wtot * nb
+            ops = live_slots * (11 if distinct else 17) * MM_OPS
         else:
             (Wb, R, _, CL), distinct = spec
             n = Wb * R * CL
@@ -608,14 +837,38 @@ def main() -> None:
             (_, _, nb), lanes = spec
             levels = lanes.bit_length() - 1
             return 16 * (2 * -(-nb // lanes) + 3 * levels + 2) + 7 * levels
+        if name == "bucket_sums_fused":
+            # a lane's R mixed adds, then its carry scan's levels and the fix
+            (_, n), _, lanes, _, distinct = spec
+            return (n // lanes) * (11 if distinct else 17) + 16 * ((lanes - 1).bit_length() + 1)
         (_, CW), W, c = spec
         return 7 * W * c + 16 * W
 
     rows = []
+    live_slots = 0
     for name in cf.KERNELS:
-        spec = (largest_e.get(name) or largest15.get(name) or largest9[name])[1]
-        fid, args, err = check(name, spec)
-        reps = 3 if name == "bucket_scan" else 10
+        # bucket_scan is no longer on the main path: it is timed at the
+        # shape the ECDSA run gave it before (91 windows x 2^15 points)
+        spec = (largest_e.get(name) or largest15.get(name) or largest9.get(name)
+                or OFF_PATH_SHAPES[name])[1]
+        if name == "colntt":
+            # the NTT's stage twiddles start at the Montgomery one
+            fid, args = make_inputs(name, spec)
+            args[1][:, 0] = mont_one
+            err = max_err(run(name, fid, args, False), run(name, fid, args, True))
+            if err:
+                raise AssertionError(f"colntt at {spec} disagrees with its plain version")
+        elif name == "bucket_sums_fused":
+            # the main path's widest MSM call with digits as random scalars
+            # give them (no special windows), held to the plain version
+            fid, args = cf.FQ, bucket_case(gen, torch, cf, spec, P[cf.FQ], special=False)[0]
+            err = max_err(cf.bucket_sums_fused(*args), cf.bucket_sums_fused_plain(*args))
+            if err:
+                raise AssertionError(f"bucket_sums_fused at {spec} disagrees with its plain version")
+            live_slots = int((args[2] > 0).sum())
+        else:
+            fid, args, err = check(name, spec)
+        reps = 3 if name in ("bucket_scan", "bucket_sums_fused") else 10
         ms = time_ms(lambda: run(name, fid, args, plain=False), reps)
         plain_ms = time_ms(lambda: run(name, fid, args, plain=True), 1)
         bms, by = bound(name, spec)
@@ -652,7 +905,7 @@ def main() -> None:
             log(f"[timing] bucket_weight: {design_adds(spec)} complete adds per window where "
                 f"the weighted sum needs {2 * nb - 2} (the suffix scans' extra adds)")
 
-    # --- 5b. one whole MSM at the ECDSA advice commit's shape: old tail vs fused ------------
+    # --- 5b. one whole MSM at the ECDSA advice commit's shape: old vs fused buckets ---------
     def old_tail(dc, S, W: int, c: int, CL2: int):
         """The MSM's tail before the fusion: the merged-lane weighted bucket
         reduction and the window combine as loops of single ec_add /
@@ -697,9 +950,9 @@ def main() -> None:
         return res
 
     def wall_ms(fn, reps: int):
-        """Mean host-clock milliseconds of fn() between synchronizes (the MSM
-        synchronizes inside, at its bucket-carry gathers); returns the last
-        result too."""
+        """Mean host-clock milliseconds of fn() between synchronizes (the old
+        bucket accumulation synchronizes inside, at its carry gathers);
+        returns the last result too."""
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         for _ in range(reps):
@@ -713,32 +966,85 @@ def main() -> None:
     vals5 = fr_df._to_mont(rand_limbs(gen, (C5, 16, params.n), torch, P[cf.FR]))
     digits5 = window_digits(fr_df, vals5, c5)  # [C, W, n]
     W5 = digits5.shape[1]
+    CL5 = _scan_lanes(params.n, dev)
     CL2_5 = weight_lanes((1 << c5) - 1, params.n, dev)
-    S5 = bucket_sums(dc5, bases5, digits5, c5, True)
-    turns = {
-        "old": lambda: old_tail(dc5, bucket_sums(dc5, bases5, digits5, c5, True), W5, c5, CL2_5),
-        "new": lambda: msm_many_device(dc5, bases5, digits5, c5, True),
-    }
+
+    def old_msm(st=None):
+        """The parent's MSM: the bucket_scan composition, then the fused tail."""
+        S = old_bucket_sums(cf, torch, bases5, digits5, c5, True, CL5, st)
+        out = cf.msm_combine(cf.bucket_weight(S, CL2_5), W5, c5)
+        if st is not None:
+            st.mark("tail")
+        return out, S
+
+    def new_msm(st=None):
+        """msm_many_device; with `st`, its steps one by one (ops/ec_device.py
+        bucket_sums at k = 15: one group of windows) between stage marks."""
+        if st is None:
+            return msm_many_device(dc5, bases5, digits5, c5, True), None
+        flat = digits5.reshape(-1, params.n).to(torch.int32)
+        d_sorted, order = torch.sort(flat, dim=1, stable=True)
+        order = order.to(torch.int32)
+        st.mark("sort")
+        packed = cf.pack_bases(*bases5)
+        st.mark("pack")
+        S = cf.bucket_sums_fused(packed, order, d_sorted, CL5, (1 << c5) - 1, True)
+        st.mark("fused")
+        out = cf.msm_combine(cf.bucket_weight(S, CL2_5), W5, c5)
+        st.mark("tail")
+        return out, S
+
+    turns = {"old": old_msm, "new": new_msm}
+    for fn in turns.values():  # warm-up
+        fn()
+    outs, sums, msm5 = {}, {}, []
+    for name in ("old", "new", "new", "old"):
+        ms_all, (outs[name], _) = wall_ms(turns[name], 3)
+        st = Stages(torch)
+        _, sums[name] = turns[name](st)
+        stages = st.ms()
+        msm5.append({"turn": name, "msm_ms": round(ms_all, 3),
+                     "stages_ms": {k: round(v, 3) for k, v in stages.items()}})
+        log(f"[msm] {name}: one MSM of {C5} columns x {params.n} points (window {c5}, "
+            f"{W5} windows, {CL5} scan lanes, {CL2_5} weight lanes): {ms_all:.3f} ms; stages "
+            f"(ms, CUDA events) " + stage_line(stages))
+    if any(not torch.equal(a, b) for a, b in zip(sums["old"], sums["new"])):
+        raise AssertionError("MSM: bucket_sums_fused's sums differ from the bucket_scan composition's")
+    if any(not torch.equal(a, b) for a, b in zip(outs["old"], outs["new"])):
+        raise AssertionError("MSM: the fused bucket sums' Jacobian output differs from the old one")
+    log("[msm] bucket sums and MSM points equal bit for bit, old and new")
+
+    # the step-loop tail against the fused one
+    S5 = sums["new"]
     tails = {
         "old": lambda: old_tail(dc5, S5, W5, c5, CL2_5),
         "new": lambda: cf.msm_combine(cf.bucket_weight(S5, CL2_5), W5, c5),
     }
-    for fn in (*turns.values(), *tails.values()):  # warm-up
-        fn()
-    outs, msm5 = {}, []
-    for name in ("old", "new", "new", "old"):
-        ms_all, outs[name] = wall_ms(turns[name], 3)
-        ms_tail = time_ms(tails[name], 5)
-        msm5.append({"turn": name, "msm_ms": round(ms_all, 3), "tail_ms": round(ms_tail, 3)})
-        log(f"[msm] {name}: one MSM of {C5} columns x {params.n} points (window {c5}, "
-            f"{W5} windows, {CL2_5} weight lanes): {ms_all:.3f} ms; its tail {ms_tail:.3f} ms")
-    if any(not torch.equal(a, b) for a, b in zip(outs["old"], outs["new"])):
+    tail_ms = {k: time_ms(fn, 3) for k, fn in tails.items()}
+    if any(not torch.equal(a, b) for a, b in zip(tails["old"](), tails["new"]())):
         raise AssertionError("MSM: the fused tail's Jacobian output differs from the step loop's")
     big = tuple(rand_limbs(gen, (16, 139776), torch, P[cf.FQ]) for _ in range(6))
     ms_add_big = time_ms(lambda: cf.ec_add(big[:3], big[3:]), 10)
-    log(f"[msm] fused and step-loop tails give the same Jacobian points; ec_add at "
-        f"[16, 139776] (the step loop's widest launch): {ms_add_big:.4f} ms")
-    log(json.dumps({"msm_turns": msm5, "ec_add_16x139776_ms": round(ms_add_big, 6)}))
+    log(f"[msm] tail: step loop {tail_ms['old']:.3f} ms, fused {tail_ms['new']:.3f} ms, same "
+        f"Jacobian points; ec_add at [16, 139776] (the step loop's widest launch): "
+        f"{ms_add_big:.4f} ms")
+
+    # the Montgomery product alone: dependent chains, carry-chain vs 64-bit C
+    lanes_mul, iters_mul = 132 * 2048, 256
+    ma, mb = (rand_limbs(gen, (16, lanes_mul), torch, P[cf.FQ]) for _ in range(2))
+    if not torch.equal(cf.mul_chain_bench(ma, mb, iters_mul, True),
+                       cf.mul_chain_bench(ma, mb, iters_mul, False)):
+        raise AssertionError("the carry-chain product differs from the 64-bit C one")
+    mul_turns = []
+    for chains in (False, True, True, False):
+        ms = time_ms(lambda: cf.mul_chain_bench(ma, mb, iters_mul, chains), 5)
+        rate = lanes_mul * iters_mul / ms / 1e6
+        mul_turns.append({"product": "carry chains" if chains else "64-bit C", "ms": round(ms, 4),
+                          "g_products_per_s": round(rate, 3)})
+        log(f"[mul] {'carry-chain' if chains else '64-bit C'} product: {lanes_mul} threads x "
+            f"{iters_mul} dependent products in {ms:.4f} ms, {rate:.2f} G products/s")
+    log(json.dumps({"msm_turns": msm5, "tail_ms": {k: round(v, 3) for k, v in tail_ms.items()},
+                    "ec_add_16x139776_ms": round(ms_add_big, 6), "mul_chain": mul_turns}))
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],

@@ -10,7 +10,13 @@
 //     which the small-column commit path (m <= 1024) runs once per scalar bit;
 //   _bucket_scan_kernel (via bucket_scan): the MSM bucket accumulation, an
 //     inclusive segmented scan of mixed adds (madd-2007-bl, the arithmetic of
-//     _madd_core) over bucket-sorted affine bases;
+//     _madd_core) over bucket-sorted affine bases; kept as the literal port
+//     (chip_smoke.py holds it to its plain version and times it), while the
+//     MSM runs
+//   bucket_sums (chain + carry launches): the same bucket accumulation with
+//     its lane-carry scan, pick and fix (halo2_lib_tpu/ops/ec_device.py:463-
+//     591, where the scan was one _bucket_scan_kernel call and the carries a
+//     loop of _ec_add_kernel calls), writing only the bucket sums;
 // and, as two fused kernels, the loops of _ec_add_kernel / _ec_double_kernel
 // launches that end a Pippenger MSM (halo2_lib_tpu/ops/ec_device.py:624-688,
 // lax.scan and fori_loop bodies there):
@@ -24,17 +30,19 @@
 // products on its add path (the doubling branch, taken on no lane of an MSM
 // in practice, runs dbl-2009-l's 7 instead), a double 7, a mixed add 11 (17
 // with the doubling branch), against at most 288 bytes of coordinates per
-// point. The two fused kernels are bound by their serial chains: a lane of
-// bucket_weight runs 2 * R2 + 3 log2(CL2) complete adds in order, a column of
-// msm_combine W * c doublings and W adds (about 2400 products at W = 26,
-// c = 10), each product a dependent chain of 32-bit multiply-adds.
+// point. The fused kernels are bound by their serial chains and by how many
+// of them an SM holds: a lane of bucket_weight runs 2 * R2 + 3 log2(CL2)
+// complete adds in order, a column of msm_combine W * c doublings and W adds
+// (about 2400 products at W = 26, c = 10), a bucket_sums chain R = n / CL
+// mixed adds (128 at n = 2^15), each product a dependent chain of 32-bit
+// multiply-adds (fp256.cuh: PTX carry chains).
 //
 // Design: one thread per point (or chain), every coordinate in registers; the
 // formulas are those of ops/ec_device.py, and the fused kernels run that
 // file's loops in their order, so each kernel agrees bit for bit with its
 // plain version. The complete add branches on its cases instead of selecting
 // between computed branches, so the add path holds only its own temporaries
-// (ec_add_k: no spills, two 128-thread blocks an SM).
+// (ec_add_k: no spills).
 // ec_madd reads the affine operand with its own row and lane strides, so one
 // [16, m] set of bases serves every column of a [C, 16, m] accumulator
 // without being copied C times; the `distinct` flag is a template parameter,
@@ -42,15 +50,18 @@
 // caller drops it. bucket_scan gives one thread to each (window, lane) chain,
 // which walks the chain's R steps in order with its accumulator in
 // registers: that loop replaces the TPU kernel's sequential grid axis and its
-// VMEM accumulators. bucket_weight reads each bucket sum once and keeps the
-// row chain in registers and the suffix scans in shared memory, where the
-// loop of single launches it replaces wrote every merged-lane point back to
-// device memory at each of its 46 adds and 6 doublings; msm_combine replaces
-// 286 launches of a few dozen threads each. Left for later: warp-cooperative
-// bucket runs, fewer threads idle at small Wb * CL, keeping the scan's
-// intermediate points out of device memory (only bucket ends are read), and
-// the lane-carry scan of the bucket accumulation (still single ec_add
-// launches).
+// VMEM accumulators. bucket_sums keeps those chains but reads each base
+// straight from the point-major table by the sorted order (64 bytes, four
+// 16-byte loads, L2-resident at n = 2^15), writes a sum only where a bucket's
+// run ends (no per-step output), and runs the lane carries in a second launch
+// of one block per window. bucket_weight reads each bucket sum once
+// and keeps the row chain in registers and the suffix scans in shared memory;
+// msm_combine replaces 286 launches of a few dozen threads each. Left for
+// later: warp-cooperative bucket runs and shorter chains (they change the
+// order of the adds, so the Jacobian sums, though not the affine points), a
+// prefetch of the next base in the chains, and fewer idle threads in the last
+// wave of chains (Wtot * CL threads of 134 registers, three 128-thread blocks
+// an SM).
 #include "fp256.cuh"
 
 using namespace h2;
@@ -283,6 +294,147 @@ __global__ void bucket_scan_k(const int32_t* __restrict__ axy, const int32_t* __
   }
 }
 
+// --- bucket sums: the MSM's bucket accumulation in two launches --------------
+// The function of bucket_scan + the lane-carry scan + the pick and fix of
+// ops/ec_device.py before the fusion, with the same adds in the same order,
+// so every bucket sum keeps its Jacobian coordinates. Window w's sorted
+// slots are CL lanes of R = n / CL consecutive slots; lane l's chain walks
+// slots l R .. l R + R - 1.
+//
+// bases: [npts, 16] words, point-major (x words 0-7, y words 8-15; word k =
+// limb 2k | limb 2k + 1 << 16), so one point is four 16-byte loads.
+// order, digits: [Wtot, n] int32, each window's digits sorted and the base
+// index of each sorted slot. sx, sy, sz: [Wtot, 16, nbk] bucket sums, bucket
+// b at slot b - 1; tail: [Wtot, 48, CL] scratch, each lane's trailing sum.
+__device__ __forceinline__ void load_base(const int4* __restrict__ bases, int32_t k, Fe& x,
+                                          Fe& y) {
+  const int4* b = bases + (int64_t)k * 4;
+  const int4 q0 = __ldg(b), q1 = __ldg(b + 1), q2 = __ldg(b + 2), q3 = __ldg(b + 3);
+  x.w[0] = q0.x, x.w[1] = q0.y, x.w[2] = q0.z, x.w[3] = q0.w;
+  x.w[4] = q1.x, x.w[5] = q1.y, x.w[6] = q1.z, x.w[7] = q1.w;
+  y.w[0] = q2.x, y.w[1] = q2.y, y.w[2] = q2.z, y.w[3] = q2.w;
+  y.w[4] = q3.x, y.w[5] = q3.y, y.w[6] = q3.z, y.w[7] = q3.w;
+}
+
+// Launch 1, the chains: one thread per (window, lane), the accumulator in
+// registers, reset where a bucket run starts; a dead slot (digit 0) adds the
+// affine identity (0, 0). Where a run ends inside the lane, the lane-local
+// sum is written to its bucket (a run that began in an earlier lane gets its
+// carry in launch 2); the lane's last sum goes to tail. Nothing else is
+// written: no per-step output, no gathered copy of the bases.
+constexpr int CHAIN_THREADS = 128;
+
+template <bool DISTINCT>
+__global__ void __launch_bounds__(CHAIN_THREADS, 3)
+bucket_chain_k(const int4* __restrict__ bases, const int32_t* __restrict__ order,
+               const int32_t* __restrict__ digits, int32_t* __restrict__ sx,
+               int32_t* __restrict__ sy, int32_t* __restrict__ sz, int32_t* __restrict__ tail,
+               int64_t Wtot, int n, int CL, int nbk) {
+  const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= Wtot * CL) return;
+  const int64_t w = i / CL;
+  const int l = (int)(i % CL), R = n / CL, p0 = l * R;
+  const int32_t* dw = digits + w * n;
+  const int32_t* ow = order + w * n;
+  int prev = p0 > 0 ? dw[p0 - 1] : -1;
+  int d = dw[p0];
+  Jac acc = identity();
+  for (int p = p0; p < p0 + R; p++) {
+    const int next = p + 1 < n ? dw[p + 1] : -1;
+    if (d != prev) acc = identity();
+    Fe x2 = zero(), y2 = zero();
+    if (d > 0) load_base(bases, ow[p], x2, y2);
+    acc = ec_madd(acc, x2, y2, DISTINCT);
+    if (d != next && d > 0) {
+      store(sx, 16, nbk, w, 0, d - 1, acc.x);
+      store(sy, 16, nbk, w, 0, d - 1, acc.y);
+      store(sz, 16, nbk, w, 0, d - 1, acc.z);
+    }
+    prev = d;
+    d = next;
+  }
+  store(tail, 48, CL, w, 0, l, acc.x);
+  store(tail, 48, CL, w, 16, l, acc.y);
+  store(tail, 48, CL, w, 32, l, acc.z);
+}
+
+// Launch 2, the carries: one block per window. (a) The inclusive segmented
+// scan of the lanes' trailing sums across the window's CL lanes, flagged
+// where a lane holds a run start: the Hillis-Steele levels of _seg_scan,
+// add(self, neighbour l - 2^d) where a lane is not yet flagged, in shared
+// memory (two buffers, so a thread may own several lanes). (b) Empty buckets
+// get Z = 0 and the X, Y that the old pick gathered: the lane-local sum at
+// the last slot below them (zeros for a dead run, the first slot's base when
+// no slot lies below). (c) A bucket whose run began in an earlier lane, at
+// most one per lane, becomes add(lane-local sum, scanned sum of the lane
+// before). (b) reads the lane-local sums before (c) changes any.
+constexpr int CARRY_THREADS = 256;
+
+__global__ void __launch_bounds__(CARRY_THREADS)
+bucket_carry_k(const int4* __restrict__ bases, const int32_t* __restrict__ order,
+               const int32_t* __restrict__ digits, int32_t* __restrict__ sx,
+               int32_t* __restrict__ sy, int32_t* __restrict__ sz,
+               const int32_t* __restrict__ tail, int n, int CL, int nbk) {
+  extern __shared__ Jac cbuf[];                        // [2, CL] points
+  uint8_t* fbuf = reinterpret_cast<uint8_t*>(cbuf + 2 * CL);  // [2, CL] flags
+  const int64_t w = blockIdx.x, Wtot = gridDim.x;
+  const int R = n / CL, T = blockDim.x, tid = threadIdx.x;
+  const int32_t* dw = digits + w * n;
+  for (int l = tid; l < CL; l += T) {
+    const int p0 = l * R;
+    cbuf[l] = load_jac(tail + w * 48 * CL, tail + (w * 48 + 16) * CL, tail + (w * 48 + 32) * CL,
+                       1, CL, 0, l);
+    fbuf[l] = l == 0 || dw[p0] != dw[p0 - 1] || dw[p0] != dw[p0 + R - 1];
+  }
+  __syncthreads();
+  int cur = 0;
+  for (int sh = 1; sh < CL; sh <<= 1) {
+    const Jac* src = cbuf + cur * CL;
+    Jac* dst = cbuf + (1 - cur) * CL;
+    const uint8_t* fs = fbuf + cur * CL;
+    uint8_t* fd = fbuf + (1 - cur) * CL;
+    for (int l = tid; l < CL; l += T) {
+      const bool f = fs[l] != 0, use = !f && l >= sh;
+      dst[l] = use ? ec_add_cold(src[l], src[l - sh]) : src[l];
+      fd[l] = f || (use && fs[l - sh]) || l < sh;
+    }
+    __syncthreads();
+    cur ^= 1;
+  }
+  const Jac* carry = cbuf + cur * CL;  // lane l's carry is carry[l - 1]
+  for (int b = tid + 1; b <= nbk; b += T) {
+    int lo = 0, hi = n;  // first slot with digit > b
+    while (lo < hi) {
+      const int mid = (lo + hi) >> 1;
+      if (dw[mid] <= b)
+        lo = mid + 1;
+      else
+        hi = mid;
+    }
+    const int q = lo - 1;
+    if (q >= 0 && dw[q] == b) continue;
+    Fe X = zero(), Y = zero();
+    if (q < 0)
+      load_base(bases, order[w * n], X, Y);
+    else if (dw[q] > 0) {
+      X = load(sx, Wtot, nbk, w, dw[q] - 1);
+      Y = load(sy, Wtot, nbk, w, dw[q] - 1);
+    }
+    store(sx, 16, nbk, w, 0, b - 1, X);
+    store(sy, 16, nbk, w, 0, b - 1, Y);
+    store(sz, 16, nbk, w, 0, b - 1, zero());
+  }
+  __syncthreads();
+  for (int l = tid; l < CL; l += T) {
+    const int p0 = l * R, b = dw[p0];
+    if (l == 0 || b <= 0 || dw[p0 - 1] != b || (l < CL - 1 && dw[p0 + R] == b)) continue;
+    const Jac S = ec_add_cold(load_jac(sx, sy, sz, Wtot, nbk, w, b - 1), carry[l - 1]);
+    store(sx, 16, nbk, w, 0, b - 1, S.x);
+    store(sy, 16, nbk, w, 0, b - 1, S.y);
+    store(sz, 16, nbk, w, 0, b - 1, S.z);
+  }
+}
+
 // Weighted bucket reduction T_w = sum_b b * S_{w,b} of one window per block,
 // in the order of ops/ec_device.py's merged-lane loops (so bit-equal to
 // them): slot b - 1 = r * CL2 + l; thread l walks its lane's R2 rows from the
@@ -420,5 +572,36 @@ extern "C" int h2_msm_combine(const int32_t* tx, const int32_t* ty, const int32_
   if (C > 0)
     msm_combine_k<<<(unsigned)((C + 31) / 32), 32, 0, (cudaStream_t)stream>>>(tx, ty, tz, ox, oy,
                                                                              oz, C, W, c);
+  return (int)cudaGetLastError();
+}
+
+// Largest CL: two [CL] point buffers and flags in one block's shared memory.
+constexpr int BUCKET_MAX_LANES = 1024;
+
+extern "C" int h2_bucket_sums(const int32_t* bases, const int32_t* order, const int32_t* digits,
+                              int32_t* sx, int32_t* sy, int32_t* sz, int32_t* tail, int64_t Wtot,
+                              int64_t n, int64_t CL, int64_t nbk, int distinct, void* stream) {
+  if (CL < 1 || CL > BUCKET_MAX_LANES || n % CL || n > INT32_MAX || nbk > INT32_MAX)
+    return (int)cudaErrorInvalidValue;
+  if (Wtot == 0 || n == 0) return (int)cudaGetLastError();
+  cudaStream_t s = (cudaStream_t)stream;
+  const int4* b4 = reinterpret_cast<const int4*>(bases);
+  const int64_t chains = Wtot * CL;
+  const unsigned blocks = (unsigned)((chains + CHAIN_THREADS - 1) / CHAIN_THREADS);
+  if (distinct)
+    bucket_chain_k<true><<<blocks, CHAIN_THREADS, 0, s>>>(b4, order, digits, sx, sy, sz, tail,
+                                                         Wtot, (int)n, (int)CL, (int)nbk);
+  else
+    bucket_chain_k<false><<<blocks, CHAIN_THREADS, 0, s>>>(b4, order, digits, sx, sy, sz, tail,
+                                                          Wtot, (int)n, (int)CL, (int)nbk);
+  int rc = (int)cudaGetLastError();
+  if (rc) return rc;
+  const size_t smem = 2 * CL * (sizeof(Jac) + 1);
+  rc = (int)cudaFuncSetAttribute(bucket_carry_k, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                 (int)smem);
+  if (rc) return rc;
+  const int threads = CL < CARRY_THREADS ? (int)CL : CARRY_THREADS;
+  bucket_carry_k<<<(unsigned)Wtot, threads, smem, s>>>(b4, order, digits, sx, sy, sz, tail,
+                                                       (int)n, (int)CL, (int)nbk);
   return (int)cudaGetLastError();
 }

@@ -10,11 +10,16 @@
 //
 // Design: one thread owns one element, loads its sixteen 16-bit limbs as eight
 // 32-bit words (coalesced across the warp, since neighbours read neighbouring
-// lanes of the same limb row) and runs CIOS Montgomery with 64-bit products.
-// An operand may broadcast its row axis or its lane axis (a [16, 1] constant
-// or a [16, B] table against [L, 16, B]) without being materialised. Left for
-// later: PTX mad.cc carry chains, packed 8x32-bit storage between kernels and
+// lanes of the same limb row) and runs CIOS Montgomery on PTX carry chains
+// (fp256.cuh). An operand may broadcast its row axis or its lane axis (a
+// [16, 1] constant or a [16, B] table against [L, 16, B]) without being
+// materialised. Left for later: packed 8x32-bit storage between kernels and
 // fusing chains of field ops into one pass.
+//
+// h2_mul_chain is a measurement, not a port: each thread runs `iters`
+// dependent Montgomery products over Fq, with the carry-chain product or the
+// 64-bit C one it replaced (mul_c64), so the two can be timed against each
+// other in one process.
 #include "fp256.cuh"
 
 using namespace h2;
@@ -68,4 +73,29 @@ extern "C" int h2_field_sub(int field, const int32_t* a, int64_t La, int64_t Ba,
                             const int32_t* b, int64_t Lb, int64_t Bb, int32_t* out,
                             int64_t L, int64_t B, void* stream) {
   return launch<2>(field, a, La, Ba, b, Lb, Bb, out, L, B, (cudaStream_t)stream);
+}
+
+template <bool CHAINS>
+__global__ void mul_chain_k(const int32_t* __restrict__ a, const int32_t* __restrict__ b,
+                            int32_t* __restrict__ out, int64_t B, int iters) {
+  const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= B) return;
+  Fe x = load(a, 1, B, 0, i);
+  const Fe y = load(b, 1, B, 0, i);
+#pragma unroll 1
+  for (int k = 0; k < iters; k++) x = CHAINS ? mul<1>(x, y) : mul_c64<1>(x, y);
+  store(out, 16, B, 0, 0, i, x);
+}
+
+// impl 1: the carry-chain product (mul), 0: the 64-bit C one (mul_c64).
+extern "C" int h2_mul_chain(int impl, const int32_t* a, const int32_t* b, int32_t* out,
+                            int64_t B, int iters, void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
+  if (B > 0) {
+    if (impl)
+      mul_chain_k<true><<<H2_BLOCKS(B), H2_THREADS, 0, s>>>(a, b, out, B, iters);
+    else
+      mul_chain_k<false><<<H2_BLOCKS(B), H2_THREADS, 0, s>>>(a, b, out, B, iters);
+  }
+  return (int)cudaGetLastError();
 }

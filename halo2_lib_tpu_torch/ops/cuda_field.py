@@ -20,13 +20,17 @@ wrapper            replaces (halo2_lib_tpu/ops/pallas_field.py)    source
 ``ec_double``      ``_ec_double_kernel``                           ``ec_kernels.cu``
 ``ec_madd``        ``_ec_madd_kernel``                             ``ec_kernels.cu``
 ``bucket_scan``    ``_bucket_scan_kernel``                         ``ec_kernels.cu``
+``bucket_sums_fused`` ``_bucket_scan_kernel`` + lane carry and pick   ``ec_kernels.cu``
 ``bucket_weight``  ``_ec_add_kernel`` + ``_ec_double_kernel`` loops ``ec_kernels.cu``
 ``msm_combine``    ``_ec_double_kernel`` + ``_ec_add_kernel`` loops ``ec_kernels.cu``
 =================  =============================================  ==========================
 
-The last two fuse the loops of single point ops that end a Pippenger MSM
-(``halo2_lib_tpu/ops/ec_device.py:624-688``): the weighted bucket reduction
-and the window combine, each in one launch, in the loops' order.
+The last three fuse what a Pippenger MSM ran as loops of single point ops
+(``halo2_lib_tpu/ops/ec_device.py:463-688``): the bucket accumulation with
+its lane-carry scan and pick (two launches, chains then carries;
+``bucket_scan``, the literal port of the TPU kernel, stays as a checked
+reference off the MSM's path), the weighted bucket reduction and the window
+combine, each in the loops' order.
 
 They are compiled with ``nvcc`` for ``sm_90a`` into one shared library with
 a plain C interface, at first use, under ``halo2_lib_tpu_torch/_build/``
@@ -72,6 +76,7 @@ KERNELS = (
     "ec_double",
     "ec_madd",
     "bucket_scan",
+    "bucket_sums_fused",
     "bucket_weight",
     "msm_combine",
 )
@@ -176,12 +181,15 @@ def _lib():
         lib.h2_ec_double.argtypes = [P] * 6 + [I64, I64, P]
         lib.h2_ec_madd.argtypes = [P] * 5 + [I64, I64] + [P] * 3 + [I64, I64, I, P]
         lib.h2_bucket_scan.argtypes = [P, P, P, I64, I64, I64, I, P]
+        lib.h2_bucket_sums.argtypes = [P] * 7 + [I64] * 4 + [I, P]
+        lib.h2_mul_chain.argtypes = [I, P, P, P, I64, I, P]
         lib.h2_bucket_weight.argtypes = [P] * 6 + [I64, I64, I, P]
         lib.h2_msm_combine.argtypes = [P] * 6 + [I64, I, I, P]
         for fn in (
             "h2_mont_mul", "h2_field_add", "h2_field_sub", "h2_fermat_inv",
             "h2_ntt_butterfly", "h2_colntt", "h2_ec_add", "h2_ec_double", "h2_ec_madd",
-            "h2_bucket_scan", "h2_bucket_weight", "h2_msm_combine",
+            "h2_bucket_scan", "h2_bucket_sums", "h2_bucket_weight", "h2_msm_combine",
+            "h2_mul_chain",
         ):
             getattr(lib, fn).restype = I
         _LIB = lib
@@ -671,6 +679,106 @@ def bucket_scan_plain(axy, seg_start, distinct: bool):
     return out.permute(2, 0, 1, 3).to(torch.int32).contiguous()
 
 
+def pack_bases(Ax: torch.Tensor, Ay: torch.Tensor) -> torch.Tensor:
+    """Affine bases (x, y), limb-major [16, npts] -> the point-major int32
+    [npts, 16] words that bucket_sums_fused reads: x words 0-7, y words 8-15,
+    word k = limb 2k | limb 2k + 1 << 16 (built in int64, wrapped to int32)."""
+    v = torch.cat([Ax, Ay], dim=0).to(torch.int64).reshape(N_LIMBS, 2, -1)
+    w = v[:, 0] | (v[:, 1] << 16)
+    return torch.where(w >= 1 << 31, w - (1 << 32), w).to(torch.int32).T.contiguous()
+
+
+def unpack_point_words(bases: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """[npts, 16] words (pack_bases) -> (x, y) int64 [16, npts] limbs."""
+    u = bases.to(torch.int64).T & 0xFFFFFFFF  # [16, npts]
+    limbs = torch.stack([u & MASK, u >> 16], dim=1).reshape(2 * N_LIMBS, -1)
+    return limbs[:N_LIMBS], limbs[N_LIMBS:]
+
+
+def _seg_scan64(P, flag, lanes: int, c: _Consts):
+    """Inclusive segmented sums across lanes of [16, N] point rows, every
+    `lanes`-lane block independent (Hillis-Steele: level d adds the point
+    2^d lanes below where the lane is not yet flagged; a lane is flagged at
+    a segment start and once it has absorbed one)."""
+    N = P[0].shape[1]
+    idx = torch.arange(N, device=P[0].device) % lanes
+    f = flag
+    for d in range((lanes - 1).bit_length()):
+        sh = 1 << d
+        s = ec_add64(P, tuple(torch.roll(t, sh, dims=-1) for t in P), c)
+        use = ~f & (idx >= sh)
+        P = tuple(torch.where(use, a, b) for a, b in zip(s, P))
+        f = f | (use & torch.roll(f, sh)) | (idx < sh)
+    return P
+
+
+def bucket_sums_fused_plain(bases, order, digits, lanes: int, nbuckets: int, distinct: bool):
+    """The bucket sums of bucket_sums_fused on int64 rows, in the kernel's
+    order: every (window, lane) chain at once, one R-step loop (a lane-local
+    sum goes to its bucket where its run ends), the segmented scan of the
+    lanes' trailing sums, the empty buckets' (X, Y) from the slot below
+    them, then each carried bucket's add."""
+    Wtot, n = digits.shape
+    CL, dev = lanes, digits.device
+    R = n // CL
+    c = _consts(FQ, dev)
+    bx, by = unpack_point_words(bases)
+    d = digits.to(torch.int64)
+    o = order.to(torch.int64)
+    edge = torch.full((Wtot, 1), -1, dtype=torch.int64, device=dev)
+    prev = torch.cat([edge, d[:, :-1]], dim=1).reshape(Wtot, CL, R)
+    nxt = torch.cat([d[:, 1:], edge], dim=1).reshape(Wtot, CL, R)
+    dl, ol = d.reshape(Wtot, CL, R), o.reshape(Wtot, CL, R)
+    S = [torch.zeros((Wtot, N_LIMBS, nbuckets), dtype=torch.int64, device=dev) for _ in range(3)]
+    zero = torch.zeros((N_LIMBS, Wtot * CL), dtype=torch.int64, device=dev)
+    win = torch.arange(Wtot, device=dev).repeat_interleave(CL)
+    acc = (zero, zero, zero)
+    for r in range(R):
+        dr = dl[:, :, r].reshape(-1)
+        start = (dr != prev[:, :, r].reshape(-1))
+        acc = tuple(torch.where(start, zero, t) for t in acc)
+        live = dr > 0
+        ix = ol[:, :, r].reshape(-1)
+        x2 = torch.where(live, bx[:, ix], 0)
+        y2 = torch.where(live, by[:, ix], 0)
+        acc = ec_madd64(acc, x2, y2, distinct, c)
+        (ends,) = torch.nonzero(live & (dr != nxt[:, :, r].reshape(-1)), as_tuple=True)
+        for t, a in zip(S, acc):
+            t[win[ends], :, dr[ends] - 1] = a[:, ends].T
+    # the carries: lane l's is the scanned trailing sum of lane l - 1
+    first = dl[:, :, 0]
+    has_start = (first != prev[:, :, 0]) | (first != dl[:, :, R - 1])
+    scan = _seg_scan64(acc, has_start.reshape(-1), CL, c)
+    # empty buckets: (X, Y) of the slot below (its run's lane-local sum), Z 0
+    targets = torch.arange(1, nbuckets + 1, device=dev).expand(Wtot, nbuckets).contiguous()
+    q = torch.searchsorted(d, targets, right=True) - 1
+    dq = torch.gather(d, 1, q.clamp(min=0))
+    empty = (q < 0) | (dq != targets)
+    wi, bi = torch.nonzero(empty, as_tuple=True)
+    qe, de = q[wi, bi], dq[wi, bi]
+    o0 = o[wi, 0]
+    for t, base in ((S[0], bx), (S[1], by)):
+        below = t[wi, :, (de - 1).clamp(min=0)]
+        below = torch.where((de > 0)[:, None], below, 0)
+        t[wi, :, bi] = torch.where((qe < 0)[:, None], base[:, o0].T, below)
+    S[2][wi, :, bi] = 0
+    # carried buckets: the run holding lane l's first slot began in an earlier
+    # lane and ends in lane l
+    lane = torch.arange(CL, device=dev)
+    nxt_first = torch.cat([dl[:, 1:, 0], edge], dim=1)
+    fix = (lane >= 1) & (first > 0) & (prev[:, :, 0] == first) & (
+        (lane == CL - 1) | (nxt_first != first)
+    )
+    wi, li = torch.nonzero(fix, as_tuple=True)
+    if wi.numel():
+        bi = first[wi, li] - 1
+        carry = tuple(t[:, wi * CL + li - 1] for t in scan)
+        fixed = ec_add64(tuple(t[wi, :, bi].T for t in S), carry, c)
+        for t, f in zip(S, fixed):
+            t[wi, :, bi] = f.T
+    return tuple(t.to(torch.int32) for t in S)
+
+
 def _suffix64(P, lanes: int, c: _Consts):
     """Within-block inclusive suffix sums of [16, N] point rows, every
     `lanes`-lane block independent (Hillis-Steele; lane l absorbs lanes
@@ -829,6 +937,8 @@ def colntt(fid: int, x, tw, mid=None):
         raise ValueError(f"stage twiddles {tuple(tw.shape)} != {(N_LIMBS, A // 2)}")
     if mid is not None and tuple(mid.shape) != (A, N_LIMBS, B):
         raise ValueError(f"mid twiddles {tuple(mid.shape)} != {(A, N_LIMBS, B)}")
+    if A * N_LIMBS * B >= 1 << 31:
+        raise ValueError(f"one column set [{A}, 16, {B}] exceeds the kernel's 32-bit offsets")
     if _on_cpu(*ts):
         return colntt_plain(fid, x, tw, mid)
     xc, twc = x.contiguous(), tw.contiguous()
@@ -932,6 +1042,64 @@ def bucket_scan(axy, seg_start, distinct: bool):
     rc = _lib().h2_bucket_scan(_ptr(a), _ptr(s), _ptr(out), Wb, R, CL, int(distinct), _stream(a))
     _check_rc(rc, "bucket_scan")
     _count("bucket_scan", Wb * R * CL, (tuple(a.shape), bool(distinct)))
+    return out
+
+
+# largest lane count bucket_sums_fused takes on the card (its carry scan
+# holds two [lanes] point buffers in one block's shared memory)
+BUCKET_MAX_LANES = 1024
+
+
+def bucket_sums_fused(bases, order, digits, lanes: int, nbuckets: int, distinct: bool):
+    """Pippenger bucket sums of Wtot windows straight from the sorted digits.
+
+    bases: int32[npts, 16] affine bases, point-major words (pack_bases);
+    digits: int32[Wtot, n], each window's digits sorted ascending; order:
+    int32[Wtot, n], the base index of each sorted slot. Window w's slots are
+    `lanes` lanes of R = n / lanes consecutive slots; the mixed-add chains,
+    the segmented scan of the lanes' carries and the carried buckets' adds run
+    in the order of the bucket_scan composition they replace (see
+    ops/ec_device.py), so the sums are the same Jacobian triples. Returns
+    (X, Y, Z), each int32[Wtot, 16, nbuckets], bucket b at slot b - 1, Z = 0
+    where a window has no digit b. `distinct=True` drops the mixed add's
+    doubling branch (sound for SRS bases). Two launches on the card: the
+    chains (one thread per (window, lane)), then the carries (one block per
+    window)."""
+    if digits.dim() != 2 or tuple(order.shape) != tuple(digits.shape):
+        raise ValueError(f"order {tuple(order.shape)} and digits {tuple(digits.shape)} differ")
+    if bases.dim() != 2 or bases.shape[1] != N_LIMBS:
+        raise ValueError(f"expected point-major bases [npts, 16], got {tuple(bases.shape)}")
+    Wtot, n = digits.shape
+    if lanes < 1 or lanes & (lanes - 1) or n % lanes:
+        raise ValueError(f"lanes {lanes} is not a power of two dividing n = {n}")
+    if _on_cpu(bases, order, digits):
+        return bucket_sums_fused_plain(bases, order, digits, lanes, nbuckets, distinct)
+    if lanes > BUCKET_MAX_LANES:
+        raise ValueError(f"lanes {lanes} > {BUCKET_MAX_LANES}")
+    b, o, d = bases.contiguous(), order.contiguous(), digits.contiguous()
+    outs = [torch.empty((Wtot, N_LIMBS, nbuckets), dtype=torch.int32, device=d.device)
+            for _ in range(3)]
+    if Wtot * n * nbuckets == 0:
+        return tuple(outs)
+    tail = torch.empty((Wtot, 3 * N_LIMBS, lanes), dtype=torch.int32, device=d.device)
+    rc = _lib().h2_bucket_sums(
+        _ptr(b), _ptr(o), _ptr(d), *map(_ptr, outs), _ptr(tail), Wtot, n, lanes, nbuckets,
+        int(distinct), _stream(d),
+    )
+    _check_rc(rc, "bucket_sums_fused")
+    _count("bucket_sums_fused", Wtot * n, ((Wtot, n), tuple(b.shape), lanes, nbuckets, bool(distinct)))
+    return tuple(outs)
+
+
+def mul_chain_bench(a, b, iters: int, chains: bool):
+    """Measurement only (not a kernel of the port's path): `iters` dependent
+    Fq Montgomery products a <- a * b per lane of [16, B] CUDA tensors, with
+    the carry-chain product (chains=True) or the 64-bit C one it replaced."""
+    a, b = a.contiguous(), b.contiguous()
+    out = torch.empty_like(a)
+    rc = _lib().h2_mul_chain(int(chains), _ptr(a), _ptr(b), _ptr(out), a.shape[-1], iters,
+                             _stream(a))
+    _check_rc(rc, "mul_chain")
     return out
 
 

@@ -4,13 +4,15 @@ The port of ``halo2_lib_tpu/ops/ec_device.py``, the engine of every KZG
 commitment. Points are three limb-major ``int32[..., 16, B]`` Montgomery
 tensors over Fq (Jacobian X, Y, Z; identity Z == 0). Point add, double and
 the mixed Jacobian + affine add are the ``ec_add``/``ec_double``/``ec_madd``
-kernels of ops/cuda_field.py; the bucket accumulation is its ``bucket_scan``
-kernel, and the MSM's tail its ``bucket_weight`` and ``msm_combine`` kernels.
+kernels of ops/cuda_field.py; the bucket accumulation is its
+``bucket_sums_fused`` kernel, and the MSM's tail its ``bucket_weight`` and
+``msm_combine`` kernels.
 
 The MSM is Pippenger with sort + segmented-scan bucket accumulation:
-  * per window: sort the points by digit, run every (window, lane) chain of
-    mixed adds in one ``bucket_scan`` launch, fix the lane-boundary carries
-    with a small segmented scan and pick each bucket's sum by binary search;
+  * per window: sort the points by digit; one ``bucket_sums_fused`` call
+    runs every (window, lane) chain of mixed adds, the segmented scan of the
+    lane-boundary carries and the carried buckets' adds, and writes only the
+    bucket sums;
   * the weighted bucket reduction runs on merged lanes, all windows at once
     (one ``bucket_weight`` launch);
   * the windows combine MSB first by repeated doubling (one ``msm_combine``
@@ -26,7 +28,7 @@ import torch
 
 from ..utils.curves import ShortWeierstrass
 from . import cuda_field as cf
-from .limbs import N_LIMBS, DeviceField, ints_to_limbs_T, to_device
+from .limbs import DeviceField, ints_to_limbs_T, to_device
 
 
 def _where(cond, a, b):
@@ -117,29 +119,12 @@ class DeviceCurve:
         return (X, Y, Z)
 
 
-def _seg_scan(dc: DeviceCurve, X, Y, Z, flag, width: int | None = None):
-    """Inclusive segmented EC-sum scan along the lane axis (Hillis-Steele).
-
-    `flag` [L] marks segment starts; elements never absorb sums across a
-    start. With `width`, every width-lane block is an independent scan."""
-    L = X.shape[-1]
-    w = width or L
-    idx = torch.arange(L, device=X.device) % w
-    x, y, z, f = X, Y, Z, flag
-    for d in range((w - 1).bit_length()):
-        shift = 1 << d
-        px, py, pz = (torch.roll(t, shift, dims=-1) for t in (x, y, z))
-        pf = torch.roll(f, shift, dims=-1)
-        s = dc._add((x, y, z), (px, py, pz))
-        use = (~f) & (idx >= shift)
-        x, y, z = (_where(use, a, b) for a, b in zip(s, (x, y, z)))
-        f = f | (use & pf) | (idx < shift)
-    return x, y, z
-
-
-# Point-slots of one bucket-accumulation group (packed bases 64 B + scan
-# outputs 192 B per slot: 2^22 slots ~ 1.1 GB at peak).
-_MSM_GROUP_SLOTS = 1 << 22
+# Bytes the bucket accumulation needs per window beyond the sort's own
+# output: its sorted digits and order (int32, 8 B a slot), the bucket sums
+# and the lanes' trailing sums (three 64-byte coordinates each). Windows go
+# to the kernel in groups within _MSM_GROUP_BYTES: one group per MSM call at
+# k = 15 (about 0.5 MB a window), several from about n = 2^20 up.
+_MSM_GROUP_BYTES = 1 << 30
 
 
 # On the card the MSM takes the JAX package's tuning at every size. On the
@@ -188,113 +173,37 @@ def weight_lanes(nbuckets: int, n: int, device) -> int:
     return min(64, 1 << (max(nbuckets - 1, 1)).bit_length())
 
 
-def _pack_pairs(A: torch.Tensor) -> torch.Tensor:
-    """[16, nb] limbs -> [8, nb] int32 rows holding limb j | limb j+8 << 16.
-    The high limb lands on the sign bit of int32, so the value is built in
-    int64 and wrapped explicitly."""
-    v = A[: N_LIMBS // 2].to(torch.int64) | (A[N_LIMBS // 2 :].to(torch.int64) << 16)
-    return torch.where(v >= 1 << 31, v - (1 << 32), v).to(torch.int32)
-
-
-def _group_bucket_sums(dc: DeviceCurve, A, order, d_sorted, nbuckets: int, distinct: bool):
-    """Bucket sums for one group of windows.
-
-    A: (Ax, Ay) limb-major [16, nb] affine bases (Montgomery; (0, 0) =
-    identity). order/d_sorted: [Wb, n] sorted digit order per window.
-    Returns (bX, bY, bZ) int32[Wb, 16, nbuckets], identity where empty.
-
-    Sorted points are laid out [lanes, R] (lane = contiguous chunk of the
-    sorted order); one bucket_scan launch runs every chain, lane-boundary
-    carries are fixed by a segmented scan across lanes, and bucket values are
-    picked by binary-search gathers.
-    """
-    Ax, Ay = A
-    dev = Ax.device
-    Wb, n = d_sorted.shape
-    CL = _scan_lanes(n, dev)
-    while n % CL:
-        CL //= 2
-    R = n // CL
-
-    seg_start = torch.cat(
-        [torch.ones((Wb, 1), dtype=torch.bool, device=dev), d_sorted[:, 1:] != d_sorted[:, :-1]],
-        dim=1,
-    )
-    live = d_sorted > 0
-    Axy = torch.cat([_pack_pairs(Ax), _pack_pairs(Ay)], dim=0)  # [16, nb]
-    # order_perm[w, r, l] = sorted position l*R + r
-    order_perm = order.reshape(Wb, CL, R).transpose(1, 2)
-    g = Axy[:, order_perm.reshape(-1)].reshape(N_LIMBS, Wb, R, CL)
-    live_perm = live.reshape(Wb, CL, R).transpose(1, 2)
-    g = torch.where(live_perm[None], g, torch.zeros_like(g))
-    axy = g.permute(1, 2, 0, 3).contiguous()  # [Wb, R, 16, CL]
-    st = seg_start.reshape(Wb, CL, R).transpose(1, 2).to(torch.int32).contiguous()
-    out = cf.bucket_scan(axy, st, distinct)  # [Wb, R, 48, CL]
-    last = out[:, R - 1]  # [Wb, 48, CL]
-    lastv = tuple(last[:, 16 * i : 16 * (i + 1), :] for i in range(3))
-
-    # lane-boundary carries: inclusive segmented scan (across lanes) of each
-    # lane's trailing-run sum, shifted right by one lane; all Wb windows' lanes
-    # merge into one axis of width-CL blocks
-    has_start = seg_start.reshape(Wb, CL, R).any(dim=2)  # [Wb, CL]
-    lastm = tuple(t.transpose(0, 1).reshape(N_LIMBS, Wb * CL) for t in lastv)
-    cm = _seg_scan(dc, *lastm, has_start.reshape(Wb * CL), width=CL)
-    zero = torch.zeros((Wb, N_LIMBS, 1), dtype=torch.int32, device=dev)
-    cx, cy, cz = (
-        torch.cat([zero, t.reshape(N_LIMBS, Wb, CL).transpose(0, 1)[..., :-1]], dim=-1)
-        for t in cm
-    )
-
-    # bucket b's lane-local sum sits at the LAST index of digit b; add the
-    # lane carry iff b's run began before that lane
-    targets = torch.arange(1, nbuckets + 1, device=dev, dtype=d_sorted.dtype)
-    targets = targets.expand(Wb, nbuckets).contiguous()
-    last_idx = torch.searchsorted(d_sorted, targets, right=True) - 1  # [Wb, nbuckets]
-    first_idx = torch.searchsorted(d_sorted, targets, right=False)
-    present = last_idx >= first_idx
-    safe_idx = last_idx.clamp(0, n - 1)
-    lane = safe_idx // R
-    idx_r = safe_idx % R
-    # vals[w, c, b] = out[w, idx_r[b], c, lane[b]]
-    cols = torch.arange(3 * N_LIMBS, device=dev)
-    lin = (idx_r[:, None, :] * (3 * N_LIMBS) + cols[None, :, None]) * CL + lane[:, None, :]
-    vals = torch.gather(out.reshape(Wb, R * 3 * N_LIMBS * CL), 1, lin.reshape(Wb, -1))
-    vals = vals.reshape(Wb, 3 * N_LIMBS, nbuckets)
-    bX, bY, bZ = vals[:, :N_LIMBS], vals[:, N_LIMBS : 2 * N_LIMBS], vals[:, 2 * N_LIMBS :]
-    # add the carry only to the buckets whose run began in an earlier lane (at
-    # most one per lane): gather them, one add, scatter back
-    wi, bi = torch.nonzero(first_idx < lane * R, as_tuple=True)
-    li = lane[wi, bi]
-    fixed = dc._add(
-        tuple(t[wi, :, bi].T for t in (bX, bY, bZ)),
-        tuple(t[wi, :, li].T for t in (cx, cy, cz)),
-    )
-    bX, bY, bZ = (t.clone() for t in (bX, bY, bZ))
-    for t, f in zip((bX, bY, bZ), fixed):
-        t[wi, :, bi] = f.T
-    bZ = _where(present, bZ, torch.zeros_like(bZ))
-    return bX, bY, bZ
-
-
-def bucket_sums(dc: DeviceCurve, A, digits: torch.Tensor, window_bits: int, distinct: bool):
+def bucket_sums(A, digits: torch.Tensor, window_bits: int, distinct: bool):
     """Bucket sums of every window of every column: int32[C * W, 16, nbuckets]
-    (X, Y, Z), window w of column i at row i * W + w, bucket b at slot b - 1.
+    (X, Y, Z), window w of column i at row i * W + w, bucket b at slot b - 1,
+    identity (Z = 0) where a window has no digit b.
 
-    digits: int[C, W, n]. All C*W windows share one sort and are
-    bucket-accumulated in memory-budgeted groups."""
+    A: (Ax, Ay) limb-major [16, n] affine bases (Montgomery; (0, 0) =
+    identity); digits: int[C, W, n]. All C*W windows share one sort; each
+    window's sorted slots form CL lanes of R = n / CL consecutive slots
+    (CL from _scan_lanes, by device), and one bucket_sums_fused call per
+    group of windows within _MSM_GROUP_BYTES runs every lane's chain of
+    mixed adds, the segmented scan of the lane-boundary carries and the
+    carried buckets' adds."""
     C, W, n = digits.shape
     nbuckets = (1 << window_bits) - 1
-    flat = digits.reshape(C * W, n).to(torch.int64)
+    flat = digits.reshape(C * W, n).to(torch.int32)
     d_sorted, order = torch.sort(flat, dim=1, stable=True)
+    order = order.to(torch.int32)
+    bases = cf.pack_bases(*A)
+    CL = _scan_lanes(n, digits.device)
+    while n % CL:
+        CL //= 2
 
     Wtot = C * W
-    divs = [g for g in range(1, Wtot + 1) if Wtot % g == 0 and g * n <= _MSM_GROUP_SLOTS]
-    good = [g for g in divs if g % 4 == 0] or divs or [1]
-    group = Wtot if Wtot * n <= _MSM_GROUP_SLOTS else max(good)
+    group = max(1, _MSM_GROUP_BYTES // (8 * n + 3 * 64 * (nbuckets + CL)))
     parts = [
-        _group_bucket_sums(dc, A, order[i : i + group], d_sorted[i : i + group], nbuckets, distinct)
+        cf.bucket_sums_fused(bases, order[i : i + group], d_sorted[i : i + group], CL, nbuckets,
+                             distinct)
         for i in range(0, Wtot, group)
     ]
+    if len(parts) == 1:
+        return parts[0]
     return tuple(torch.cat([p[j] for p in parts], dim=0) for j in range(3))
 
 
@@ -305,7 +214,7 @@ def _msm_from_digits(dc: DeviceCurve, A, digits: torch.Tensor, window_bits: int,
     blocks of CL2 merged lanes) gives [16, C * W] window sums; the windows
     combine MSB first across all C columns (msm_combine)."""
     _, W, n = digits.shape
-    S = bucket_sums(dc, A, digits, window_bits, distinct)
+    S = bucket_sums(A, digits, window_bits, distinct)
     T = cf.bucket_weight(S, weight_lanes(S[0].shape[-1], n, digits.device))
     return cf.msm_combine(T, W, window_bits)
 

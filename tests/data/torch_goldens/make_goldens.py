@@ -17,7 +17,9 @@ itself,
   of ``ec_case_points``, every special case of the add included, and of its
   mixed add (``_madd_xla``, both ``distinct`` values) on ``madd_case_points``,
   and of the MSM tail of ``_msm_from_digits`` (window sums and combined
-  result) on the bucket sums of ``msm_tail_case_points``;
+  result) on the bucket sums of ``msm_tail_case_points``, and of the bucket
+  accumulation ``_bucket_sums`` (both ``distinct`` values) on the bases and
+  window digits of ``bucket_sums_case``;
 * ``slice_k15.json`` (with ``--k15``): the SHA-256 of the JAX proof of the
   k=15 slice circuit at seed 0, which ``chip_smoke.py`` compares with;
 * ``ecdsa_k15.json`` (with ``--ecdsa``): the SHA-256 of the vk and of the
@@ -215,6 +217,7 @@ def freeze_ec() -> None:
     for key, distinct in (("madd", False), ("madd_distinct", True)):
         out[key] = digest(jax.jit(dc._madd_xla, static_argnums=2)(P1, A2, distinct))
     out.update(msm_tail_digests(dc, digest))
+    out.update(bucket_sums_digests(dc, digest))
     with open(os.path.join(HERE, "ec_digests.json"), "w") as f:
         json.dump(out, f, indent=1)
         f.write("\n")
@@ -280,6 +283,63 @@ def msm_tail_digests(dc, digest) -> dict:
     finally:
         jed._bucket_sums = real
     return {"msm_tail_window_sums": digest(T), "msm_tail": digest(res)}
+
+
+def bucket_sums_case():
+    """Bases and window digits for the bucket-accumulation digests: n = 512
+    affine bases (host points, None = identity) and Wtot = 5 windows of c = 6
+    bits (63 buckets), as (c, bases, digits [Wtot][n]) from a fixed seed. At
+    n = 512 the JAX package scans 128 lanes of 4 slots. Window 0: random
+    digits; 1: one bucket fills the window; 2: every digit 0 (dead); 3: no
+    digit below 3 and one run of 300 slots (across 75 lanes), the rest
+    sparse; 4: bases 1 and 2 (P, -P) share a bucket, bases 10 and 11 (equal
+    points) share another (the mixed add's doubling branch unless
+    `distinct`), base 5 is the identity. tests/test_torch_bucket_sums.py
+    makes the same ones."""
+    from halo2_lib_tpu.utils.curves import BN254_G1
+
+    q = BN254_G1.base.p
+    rng = random.Random(33)
+    n, c = 512, 6
+    pool = [BN254_G1.random_point(rng) for _ in range(24)]
+    bases = [rng.choice(pool) for _ in range(n)]
+    P = pool[0]
+    bases[1], bases[2] = P, (P[0], q - P[1])
+    bases[10] = bases[11] = pool[1]
+    bases[5] = None
+    nb = (1 << c) - 1
+    w0 = [rng.randrange(nb + 1) for _ in range(n)]
+    w1 = [37] * n
+    w2 = [0] * n
+    w3 = [rng.choice([3, 9, 40, 41, 63]) for _ in range(n)]
+    for i in range(100, 400):
+        w3[i] = 5
+    w4 = [rng.randrange(nb + 1) for _ in range(n)]
+    w4[1] = w4[2] = 20
+    w4[10] = w4[11] = 21
+    for i in range(n):
+        if i not in (1, 2, 10, 11) and w4[i] in (20, 21):
+            w4[i] = 22
+    return c, bases, [w0, w1, w2, w3, w4]
+
+
+def bucket_sums_digests(dc, digest) -> dict:
+    """The JAX package's bucket accumulation (_bucket_sums, the sort of
+    _msm_from_digits before it) on bucket_sums_case: ``bucket_sums`` and
+    ``bucket_sums_distinct``, the (X, Y, Z) [Wtot, 16, 63] sums."""
+    import jax.numpy as jnp
+
+    from halo2_lib_tpu.ops import ec_device as jed
+
+    c, bases, digits = bucket_sums_case()
+    A = tuple(dc.df.pack([0 if pt is None else pt[i] for pt in bases]) for i in (0, 1))
+    flat = jnp.asarray(np.array(digits, dtype=np.int32))
+    order = jnp.argsort(flat, axis=1)
+    d_sorted = jnp.take_along_axis(flat, order, axis=1)
+    out = {}
+    for key, distinct in (("bucket_sums", False), ("bucket_sums_distinct", True)):
+        out[key] = digest(jed._bucket_sums(dc, A, order, d_sorted, (1 << c) - 1, distinct))
+    return out
 
 
 def madd_case_points():

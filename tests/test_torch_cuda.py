@@ -56,12 +56,26 @@ def test_fermat_and_butterfly(dev):
         assert torch.equal(k, pl)
 
 
-@pytest.mark.parametrize("A,with_mid", [(2, True), (8, False), (128, True)])
+@pytest.mark.parametrize("A,with_mid", [(2, True), (8, False), (128, True), (4, True),
+                                        (16, False), (64, True), (256, True), (1024, False)])
 def test_colntt(dev, A, with_mid):
     gen = torch.Generator().manual_seed(A)
     x = _rand((3, A, 16, 77), FR_BN254.p, gen, dev)
     tw = _rand((16, A // 2), FR_BN254.p, gen, dev)
     mid = _rand((A, 16, 77), FR_BN254.p, gen, dev) if with_mid else None
+    assert torch.equal(cf.colntt(cf.FR, x, tw, mid), cf.colntt_plain(cf.FR, x, tw, mid))
+
+
+@pytest.mark.parametrize("A", [8, 128])
+def test_colntt_unit_first_twiddle(dev, A):
+    """tw[0] the Montgomery one, as the NTT's tables have it: the kernel
+    skips the last stage's products by it and must still agree."""
+    gen = torch.Generator().manual_seed(A + 1)
+    x = _rand((2, A, 16, 45), FR_BN254.p, gen, dev)
+    tw = _rand((16, A // 2), FR_BN254.p, gen, dev)
+    one = (1 << 256) % FR_BN254.p
+    tw[:, 0] = torch.tensor([(one >> (16 * i)) & 0xFFFF for i in range(16)], dtype=torch.int32)
+    mid = _rand((A, 16, 45), FR_BN254.p, gen, dev)
     assert torch.equal(cf.colntt(cf.FR, x, tw, mid), cf.colntt_plain(cf.FR, x, tw, mid))
 
 
@@ -123,6 +137,29 @@ def test_bucket_scan(dev, distinct):
     start = (torch.rand((4, 7, 33), generator=gen) < 0.2).to(torch.int32).to(dev)
     got = cf.bucket_scan(axy, start, distinct)
     assert torch.equal(got, cf.bucket_scan_plain(axy, start, distinct))
+
+
+@pytest.mark.parametrize("lanes, distinct", [(8, False), (16, True), (128, False), (128, True)])
+def test_bucket_sums_fused(dev, lanes, distinct):
+    """The fused bucket accumulation on the card against its plain version
+    and against the bucket_scan composition it replaced, on the special
+    windows of tests/test_torch_bucket_sums.py (a run across many lanes,
+    one bucket filling a window, a dead window, buckets below every digit,
+    P + P and P + (-P) in a run, an identity base)."""
+    from test_torch_bucket_sums import _affine, _sorted, bucket_sums_case, old_bucket_sums
+
+    dc = DeviceCurve(DeviceField(BN254_G1.base), BN254_G1)
+    c, bases, digits = bucket_sums_case()
+    A = tuple(t.to(dev) for t in _affine(dc, bases))
+    order, d_sorted = (t.to(dev) for t in _sorted(digits))
+    nb = (1 << c) - 1
+    args = (cf.pack_bases(*A), order, d_sorted, lanes, nb, distinct)
+    cf.reset_launches()
+    got = cf.bucket_sums_fused(*args)
+    assert cf.LAUNCHES["bucket_sums_fused"] == 1
+    for k, pl, old in zip(got, cf.bucket_sums_fused_plain(*args),
+                          old_bucket_sums(A, order, d_sorted, nb, distinct, lanes)):
+        assert torch.equal(k, pl) and torch.equal(k, old)
 
 
 def _special_lanes(S):
@@ -193,8 +230,10 @@ def test_msm_on_the_card_matches_cpu(dev):
     cf.reset_launches()
     got = dc.unpack_points(msm_many_device(dc, A_dev, digits.to(dev), 8))
     assert got == want
-    # the tail runs as the two fused kernels, no single doubling
-    assert cf.LAUNCHES["bucket_scan"] == 1 and cf.LAUNCHES["ec_double"] == 0
+    # the bucket accumulation and the tail run as the three fused kernels,
+    # no bucket_scan and no single add or doubling
+    assert cf.LAUNCHES["bucket_sums_fused"] == 1 and cf.LAUNCHES["bucket_scan"] == 0
+    assert cf.LAUNCHES["ec_add"] == 0 and cf.LAUNCHES["ec_double"] == 0
     assert cf.LAUNCHES["bucket_weight"] == 1 and cf.LAUNCHES["msm_combine"] == 1
 
 
