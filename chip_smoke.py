@@ -20,13 +20,23 @@ printing its own lines; any failure raises and exits non-zero:
              composition it replaced (bucket_scan, the lane-carry scan of
              single ec_add launches, the pick and the fix; kept here, not in
              the package); colntt at A = 2..1024, with and without the mid,
-             ragged B, tw[0] random and the Montgomery one).
-3. k=9     - keygen + create_proof of the golden circuit; the vk and proof
-             bytes must equal the JAX package's goldens in
-             tests/data/torch_goldens/. Its domains (2^9, 2^11) take the
-             radix-2 NTT (ntt_butterfly), and its commits (m = 2^9 <= 1024)
-             the double-and-add through ec_madd, never Pippenger. Then one
-             k=9 commit is timed both ways (double-and-add, Pippenger).
+             ragged B, tw[0] random and the Montgomery one); commit_dbl_add
+             at (C, m) = (1, 1), (3, 13), (8, 512) and (3, 1024) with
+             scalars 0, 1 and r - 1, an all-zero column and a (0, 0) base,
+             also against the per-bit composition it replaced (ec_double,
+             ec_madd, select, then the ec_add lane tree; kept here, not in
+             the package); fermat_inv on both fields at [1, 16, 1],
+             [11, 16, 1] and [3, 16, 1000] with 0, 1, p - 1, R mod p and
+             2^-1 among random values.
+3. k=9     - keygen + create_proof of the golden circuit (seconds of each
+             printed); the vk and proof bytes must equal the JAX package's
+             goldens in tests/data/torch_goldens/. Its domains (2^9, 2^11)
+             take the radix-2 NTT (ntt_butterfly), and its commits (m = 2^9
+             <= 1024) the fused double-and-add, one commit_dbl_add launch per
+             commit call, never Pippenger, ec_madd, ec_double or ec_add. Then
+             one k=9 commit is timed three ways: the old per-bit loop,
+             commit_dbl_add (Jacobian-equal to it) and Pippenger (equal in
+             affine form).
 4. k=15    - keygen -> create_proof -> verify_proof of the slice circuit (4
              advice + 1 lookup column, every column 2^15 rows), with a
              tampered proof rejected and the proof's SHA-256 held against the
@@ -41,15 +51,18 @@ printing its own lines; any failure raises and exits non-zero:
              Kernel launch counts are reset just before phases 3, 4 and 4b
              and read just after each; every kernel must have launched in the
              phases whose paths run it: k=9 every kernel but colntt and the
-             Pippenger ones (bucket_scan, bucket_sums_fused, bucket_weight,
-             msm_combine); k=15 and ECDSA every kernel but ntt_butterfly,
-             ec_madd, ec_double, ec_add and bucket_scan, and those last three
-             not at all (the MSM is bucket_sums_fused, bucket_weight and
-             msm_combine, one launch each per MSM call).
+             Pippenger ones (bucket_sums_fused, bucket_weight, msm_combine);
+             k=15 and ECDSA every kernel but ntt_butterfly and
+             commit_dbl_add (the MSM is bucket_sums_fused, bucket_weight and
+             msm_combine, one launch each per MSM call). The literal ports
+             ec_madd, ec_double, ec_add and bucket_scan run on no path: 0
+             launches in all three.
 5. timing  - every kernel again, at the largest shapes the main path gave it
-             (bucket_scan, no longer on the path, at the shape it had on the
-             ECDSA run before the fusion): kernel time, plain version time
-             and the bound, as one JSON line.
+             (ec_madd, ec_double, ec_add and bucket_scan, off the path, at the
+             shapes they had on it before their fusion): kernel time, plain
+             version time and the bound, as one JSON line; the fused
+             kernels' and fermat_inv's serial chains on [timing] lines, and
+             commit_dbl_add also at m = 1024.
 5b. MSM    - one whole MSM at the ECDSA advice commit's shape (21 columns x
              2^15 points, window 10, distinct bases), in turns old, new, new,
              old: "old" accumulates the buckets by the bucket_scan composition
@@ -107,14 +120,30 @@ SOURCES = {
     # _ec_add_kernel / _ec_double_kernel calls at ec_device.py:624-688
     "bucket_weight": ("csrc/ec_kernels.cu", "halo2_lib_tpu/ops/pallas_field.py:304"),
     "msm_combine": ("csrc/ec_kernels.cu", "halo2_lib_tpu/ops/pallas_field.py:448"),
+    # the small-column commit: the lax.scan of _ec_double_kernel and
+    # _ec_madd_kernel steps and the _ec_add_kernel lane tree
+    "commit_dbl_add": ("csrc/ec_kernels.cu", "halo2_lib_tpu/ops/pallas_field.py:430"),
 }
-# kernels the main path no longer launches: (work, shape) as LARGEST keeps them
-OFF_PATH_SHAPES = {"bucket_scan": (0, ((91, 128, 16, 256), True))}
+# kernels the main path no longer launches: (work, shape) as LARGEST kept
+# them on the last path that ran them (ECDSA for bucket_scan, k=9 for the
+# single point ops)
+OFF_PATH_SHAPES = {
+    "bucket_scan": (0, ((91, 128, 16, 256), True)),
+    "ec_add": (0, ((8, 16, 256),)),
+    "ec_double": (0, ((8, 16, 512),)),
+    "ec_madd": (0, ((8, 16, 512), (16, 512), False)),
+}
 FUSES = {
     "bucket_sums_fused": "halo2_lib_tpu/ops/ec_device.py:463-591",
     "bucket_weight": "halo2_lib_tpu/ops/ec_device.py:624-674",
     "msm_combine": "halo2_lib_tpu/ops/ec_device.py:676-688",
+    "commit_dbl_add": "halo2_lib_tpu/backend/kzg.py:499-519, halo2_lib_tpu/ops/ec_device.py:308",
 }
+# 32-bit operations of one batch of the inversion (csrc/fermat_kernel.cu):
+# the 2x2 matrix on (d, e), 6 multiply-adds a limb with the multiple of p,
+# and on (f, g), 4 a limb, over 9 limbs, each a 32 x 32 -> 64-bit product
+# (a low and a high half); and 30 divsteps of about 10 operations.
+INV_BATCH_OPS = 2 * 9 * (6 + 4) + 10 * 30
 
 
 def log(msg: str) -> None:
@@ -188,6 +217,73 @@ class Stages:
         for (_, a), (name, b) in zip(self.events, self.events[1:]):
             out[name] = out.get(name, 0.0) + a.elapsed_time(b)
         return out
+
+
+def divsteps_needed(x: int, p: int) -> int:
+    """Divsteps the inversion kernel runs on x before g = 0 (one at a time on
+    whole integers, eta = -delta from -1, as the kernel starts)."""
+    eta, f, g, n = -1, p, x, 0
+    while g:
+        if g & 1:
+            if eta < 0:
+                eta, f, g = -eta, g, -f
+            g += f
+        g >>= 1
+        eta -= 1
+        n += 1
+    return n
+
+
+def old_commit_double_and_add(cf, dc, scalars, Ax, Ay):
+    """backend/kzg.py:commit_double_and_add before the fusion, on canonical
+    scalars [C, 16, m]: the 254 one-bit windows MSB first, per bit one
+    ec_double and one ec_madd launch (with its doubling branch) over all C
+    * m lanes and a select, then DeviceCurve.tree_reduce (ec_add launches)
+    -> Jacobian [16, C]."""
+    C, _, m = scalars.shape
+    Am = (Ax[:, :m].contiguous(), Ay[:, :m].contiguous())
+    acc = dc.identity((C, m), scalars.device)
+    for b in range(253, -1, -1):
+        bit = ((scalars[:, b // 16, :] >> (b % 16)) & 1) != 0
+        acc = cf.ec_double(acc)
+        acc = dc.select(bit, cf.ec_madd(acc, Am, False), acc)
+    X, Y, Z = dc.tree_reduce(acc)  # [C, 16, 1]
+    return tuple(t[..., 0].transpose(0, 1) for t in (X, Y, Z))
+
+
+def commit_case(gen, torch, cf, spec, P: dict):
+    """Inputs of commit_dbl_add at spec ((C, 16, m), (16, n)): random
+    canonical Fr scalars and Fq bases (the formulas need no curve points to
+    agree with their plain version); lanes 0-2 of column 0 hold the scalars
+    0, 1 and r - 1, the last column of three or more is all zeros (its sum
+    the identity), and base 3 is (0, 0)."""
+    (C, _, m), (_, n) = spec
+    scal = rand_limbs(gen, (C, 16, m), torch, P[cf.FR])
+    r = P[cf.FR]
+    for lane, v in enumerate((0, 1, r - 1)[:m]):
+        scal[0, :, lane] = torch.tensor([(v >> (16 * i)) & 0xFFFF for i in range(16)],
+                                        dtype=torch.int32, device="cuda")
+    if C >= 3:
+        scal[C - 1] = 0
+    Ax, Ay = (rand_limbs(gen, (16, n), torch, P[cf.FQ]) for _ in range(2))
+    if m > 3:
+        Ax[:, 3] = Ay[:, 3] = 0
+    return scal, Ax, Ay
+
+
+def commit_work(scalars, m: int):
+    """(Montgomery products commit_dbl_add runs on these scalars, the longest
+    thread's chain of them): per lane, a doubling (7) at and below its top
+    bit and a mixed add (11) at each set bit but the first (which meets the
+    identity); then m - 1 complete adds (16) per column, log2(m) levels."""
+    tops, sets = [], []
+    for x in scalars:
+        tops.append(x.bit_length())
+        sets.append(bin(x).count("1"))
+    lane = [7 * t + 11 * max(s - 1, 0) for t, s in zip(tops, sets)]
+    C = len(scalars) // m
+    levels = (m - 1).bit_length()
+    return sum(lane) + 16 * C * (m - 1), max(lane) + 16 * levels
 
 
 def old_seg_scan(cf, torch, X, Y, Z, flag, width: int):
@@ -344,9 +440,11 @@ def main() -> None:
     from halo2_lib_tpu_torch.backend.verifier import verify_proof
     from halo2_lib_tpu_torch.ops import cuda_field as cf
     from halo2_lib_tpu_torch.ops.ec_device import (
-        _scan_lanes, msm_many_device, msm_window_bits, weight_lanes,
+        DeviceCurve, _scan_lanes, msm_many_device, msm_window_bits, weight_lanes,
     )
-    from halo2_lib_tpu_torch.ops.limbs import DeviceField
+    from halo2_lib_tpu_torch.ops.limbs import DeviceField, limbs_to_ints
+    from halo2_lib_tpu_torch.backend.kzg import COMMIT_SIMPLE_MAX
+    from halo2_lib_tpu_torch.utils.curves import BN254_G1
     from halo2_lib_tpu_torch.utils.fields import FQ_BN254, FR_BN254
     from halo2_lib_tpu_torch.utils.pinning import pinning_of
     from halo2_lib_tpu_torch.utils.testing import (
@@ -373,6 +471,8 @@ def main() -> None:
         if name == "fermat_inv":
             (sa,) = spec
             return cf.FR, (rand_limbs(gen, sa, torch, P[cf.FR]),)
+        if name == "commit_dbl_add":
+            return cf.FQ, commit_case(gen, torch, cf, spec, P)
         if name == "ntt_butterfly":
             sa, sw = spec
             a = rand_limbs(gen, sa, torch, P[cf.FR])
@@ -471,7 +571,7 @@ def main() -> None:
             return (cf.ec_madd_plain if plain else cf.ec_madd)(*args)
         if name == "bucket_scan":
             return ((cf.bucket_scan_plain if plain else cf.bucket_scan)(*args),)
-        if name in ("bucket_sums_fused", "bucket_weight", "msm_combine"):
+        if name in ("bucket_sums_fused", "bucket_weight", "msm_combine", "commit_dbl_add"):
             return getattr(cf, f"{name}_plain" if plain else name)(*args)
         raise KeyError(name)
 
@@ -505,6 +605,7 @@ def main() -> None:
         "bucket_sums_fused": ((7, 512), (512, 16), 16, 63, False),
         "bucket_weight": ((13, 16, 7), 2),
         "msm_combine": ((16, 26), 26, 10),
+        "commit_dbl_add": ((3, 16, 13), (16, 20)),
     }
     for name, spec in ragged.items():
         check(name, spec)
@@ -555,6 +656,32 @@ def main() -> None:
                        ("msm_combine", ((16, 42 * 26), 26, 10))):
         check(name, spec)
         log(f"[kernels] {name} at {spec}: kernel == plain (max |diff| 0)")
+    # the fused small-column commit: m = 1, 13 (an odd tree), 512 and 1024,
+    # C = 1, 3 and 8, against its plain version and the per-bit composition
+    dc_chk = DeviceCurve(DeviceField(FQ_BN254), BN254_G1)
+    for spec in (((1, 16, 1), (16, 1)), ((3, 16, 13), (16, 13)), ((8, 16, 512), (16, 512)),
+                 ((3, 16, 1024), (16, 1024))):
+        fid, args, _ = check("commit_dbl_add", spec)
+        if max_err(cf.commit_dbl_add(*args), old_commit_double_and_add(cf, dc_chk, *args)):
+            raise AssertionError(f"commit_dbl_add at {spec} differs from the per-bit composition")
+        log(f"[kernels] commit_dbl_add at {spec}: kernel == plain == the per-bit composition "
+            f"(max |diff| 0)")
+    # the inversion on both fields, with 0, 1, p - 1, R mod p and 2^-1
+    for fid in (cf.FR, cf.FQ):
+        p = P[fid]
+        special = [0, 1, p - 1, (1 << 256) % p, pow(2, -1, p)]
+        for shape in ((1, 16, 1), (11, 16, 1), (3, 16, 1000)):
+            a = rand_limbs(gen, shape, torch, p)
+            flat = a.permute(1, 0, 2).reshape(16, -1)  # element j = row j // B, lane j % B
+            for j, v in enumerate(special if flat.shape[1] > 1 else [p - 1]):
+                flat[:, j] = torch.tensor([(v >> (16 * i)) & 0xFFFF for i in range(16)],
+                                          dtype=torch.int32, device="cuda")
+            a = flat.reshape(16, shape[0], shape[2]).permute(1, 0, 2).contiguous()
+            err = max_err((cf.fermat_inv(fid, a),), (cf.fermat_inv_plain(fid, a),))
+            if err:
+                raise AssertionError(f"fermat_inv (field {fid}) at {shape} disagrees with its "
+                                     f"plain version")
+            log(f"[kernels] fermat_inv (field {fid}) at {shape}: kernel == plain (max |diff| 0)")
 
     def time_ms(fn, reps: int) -> float:
         """Mean milliseconds of fn() on the card (CUDA events), after one
@@ -581,12 +708,28 @@ def main() -> None:
     t = time.time()
     gold = np.load(os.path.join(HERE, "tests", "data", "torch_goldens", "golden_k9.npz"))
     params9 = ParamsKZG.read(os.path.join(HERE, "params", "kzg_bn254_9.srs"), device=dev)
+    # the commit calls that take the double-and-add (C >= 1, m <= 1024)
+    commit_calls9 = []
+    commit_columns9 = params9.commit_columns
+
+    def counted_commit(fr_df, vals, bases, window_bits=None):
+        if vals.shape[0] and vals.shape[2] <= COMMIT_SIMPLE_MAX:
+            commit_calls9.append(tuple(vals.shape))
+        return commit_columns9(fr_df, vals, bases, window_bits)
+
+    params9.commit_columns = counted_commit
     torch.cuda.synchronize()
     cf.reset_launches()
+    t9 = time.time()
     pk9 = keygen(params9, golden_circuit(), device=dev)
+    torch.cuda.synchronize()
+    t_keygen9 = time.time() - t9
+    t9 = time.time()
     proof9 = create_proof(params9, pk9, golden_circuit(), seed=0, device=dev)
     torch.cuda.synchronize()
+    t_prove9 = time.time() - t9
     launches9, largest9 = dict(cf.LAUNCHES), dict(cf.LARGEST)
+    params9.commit_columns = commit_columns9
     if pk9.vk.to_bytes() != bytes(gold["vk"]):
         raise AssertionError("k=9 vk bytes differ from the JAX golden")
     if proof9 != bytes(gold["proof"]):
@@ -594,37 +737,45 @@ def main() -> None:
     if not verify_proof(params9, pk9.vk, proof9):
         raise AssertionError("k=9 proof does not verify")
     log(f"[k=9] vk and proof byte-identical to the JAX goldens ({len(proof9)} bytes), "
-        f"verifies; {time.time() - t:.2f}s")
+        f"verifies; keygen {t_keygen9:.3f}s, create_proof {t_prove9:.3f}s; "
+        f"{time.time() - t:.2f}s in all")
     log("[k=9] launches: " + json.dumps(launches9))
-    # the JAX package's device path at k=9: every commit (m <= 1024) by
-    # double-and-add through ec_madd, none through the Pippenger bucket scan
-    if launches9["ec_madd"] == 0 or launches9["bucket_scan"] != 0:
-        raise AssertionError(
-            f"k=9 commits: ec_madd {launches9['ec_madd']} launches (want > 0), "
-            f"bucket_scan {launches9['bucket_scan']} (want 0)"
-        )
+    # the JAX package's device path at k=9: every commit (m <= 1024) by the
+    # fused double-and-add, one launch per commit call; no single point op
+    # and no Pippenger bucket accumulation
+    want9 = {"commit_dbl_add": len(commit_calls9), "ec_madd": 0, "ec_double": 0, "ec_add": 0,
+             "bucket_scan": 0, "bucket_sums_fused": 0}
+    if not commit_calls9 or any(launches9[k] != v for k, v in want9.items()):
+        raise AssertionError(f"k=9 launches {launches9}; want {want9} "
+                             f"({len(commit_calls9)} commit calls)")
+    log(f"[k=9] {len(commit_calls9)} commit calls {commit_calls9}, one commit_dbl_add launch "
+        f"each")
 
-    # one k=9 commit both ways: the largest column set the k=9 run committed
-    (C9, _, m9), _, _ = largest9["ec_madd"][1]
+    # one k=9 commit three ways: the largest column set the k=9 run committed
+    (C9, _, m9), _ = largest9["commit_dbl_add"][1]
     fr_df = DeviceField(FR_BN254)
     dc9 = params9.device_curve()
     vals9 = fr_df._to_mont(rand_limbs(gen, (C9, 16, m9), torch, P[cf.FR]))
     bases9 = params9.affine_lagrange_bases(dev)
     wb9 = msm_window_bits(m9, dev)
-
-    def commit_dna():
-        return _pack_affine(dc9.df, *commit_double_and_add(dc9, fr_df, vals9, bases9))
-
-    def commit_pippenger():
-        digits = window_digits(fr_df, vals9, wb9)
-        digits = torch.nn.functional.pad(digits, (0, params9.n - m9))
-        return _pack_affine(dc9.df, *msm_many_device(dc9, bases9, digits, wb9, True))
-
-    if not torch.equal(commit_dna(), commit_pippenger()):
-        raise AssertionError("k=9 commit: double-and-add and Pippenger disagree")
-    ms_dna, ms_pip = time_ms(commit_dna, 3), time_ms(commit_pippenger, 3)
-    log(f"[k=9] one commit of {C9} columns x {m9} points: double-and-add (ec_madd) "
-        f"{ms_dna:.3f} ms, Pippenger (bucket_sums_fused, window {wb9}) {ms_pip:.3f} ms; equal")
+    commits9 = {
+        "old loop": lambda: old_commit_double_and_add(cf, dc9, fr_df._from_mont(vals9), *bases9),
+        "commit_dbl_add": lambda: commit_double_and_add(dc9, fr_df, vals9, bases9),
+        "Pippenger": lambda: msm_many_device(
+            dc9, bases9, torch.nn.functional.pad(window_digits(fr_df, vals9, wb9),
+                                                 (0, params9.n - m9)), wb9, True),
+    }
+    jac9 = {k: fn() for k, fn in commits9.items()}
+    if max_err(jac9["old loop"], jac9["commit_dbl_add"]):
+        raise AssertionError("k=9 commit: commit_dbl_add's Jacobian points differ from the loop's")
+    aff9 = {k: _pack_affine(dc9.df, *v) for k, v in jac9.items()}
+    if any(not torch.equal(v, aff9["old loop"]) for v in aff9.values()):
+        raise AssertionError("k=9 commit: the loop, commit_dbl_add and Pippenger disagree")
+    ms9 = {k: time_ms(fn, 3) for k, fn in commits9.items()}
+    log(f"[k=9] one commit of {C9} columns x {m9} points: "
+        + ", ".join(f"{k} {v:.3f} ms" for k, v in ms9.items())
+        + f" (Pippenger window {wb9}); the loop and commit_dbl_add equal as Jacobian points, "
+        f"all three in affine form")
 
     # --- 4. k=15 slice circuit -------------------------------------------------------------
     t = time.time()
@@ -725,18 +876,21 @@ def main() -> None:
         "JAX package's")
     log("[ecdsa] launches: " + json.dumps(launches_e))
 
-    # k=9 runs the radix-2 butterfly and commits by double-and-add (ec_double
-    # and ec_madd); k=15 runs the four-step colntt and commits by Pippenger
-    # (bucket_sums_fused, then the fused tail: bucket_weight and msm_combine,
-    # one launch each per MSM call; no single add, doubling or bucket_scan);
-    # every other kernel runs at both sizes
-    pippenger = ("bucket_scan", "bucket_sums_fused", "bucket_weight", "msm_combine")
-    missing = [k for k in cf.KERNELS if k not in ("colntt", *pippenger) and launches9[k] == 0]
+    # k=9 runs the radix-2 butterfly and commits by the fused double-and-add
+    # (commit_dbl_add); k=15 runs the four-step colntt and commits by
+    # Pippenger (bucket_sums_fused, then the fused tail: bucket_weight and
+    # msm_combine, one launch each per MSM call); the literal ports of the
+    # single point ops and of the bucket scan run nowhere; every other kernel
+    # runs at both sizes
+    off_path = ("ec_add", "ec_double", "ec_madd", "bucket_scan")
+    pippenger = ("bucket_sums_fused", "bucket_weight", "msm_combine")
+    missing = [k for k in cf.KERNELS
+               if k not in ("colntt", *off_path, *pippenger) and launches9[k] == 0]
     for name, counts in (("k=15", launches15), ("ecdsa", launches_e)):
-        never = ("ec_double", "ec_add", "bucket_scan")
+        never = (*off_path, "commit_dbl_add")
         missing += [
             f"{k} ({name})" for k in cf.KERNELS
-            if k not in ("ntt_butterfly", "ec_madd", *never) and counts[k] == 0
+            if k not in ("ntt_butterfly", *never) and counts[k] == 0
         ]
         per_call = {counts[k] for k in ("bucket_sums_fused", "bucket_weight", "msm_combine")}
         if any(counts[k] for k in never) or len(per_call) != 1:
@@ -764,8 +918,15 @@ def main() -> None:
             nbytes = 4 * (numel(sa) + numel(sb)) + 64 * n
             ops = n * (MM_OPS if name == "mont_mul" else 2 * 16)
         elif name == "fermat_inv":
+            # the batches of divsteps this run's elements need (one for 0)
             n = numel(spec[0]) // 16
-            nbytes, ops = 128 * n, n * 330 * MM_OPS
+            nbytes, ops = 128 * n, work["inv_batches"] * INV_BATCH_OPS
+        elif name == "commit_dbl_add":
+            # the scalars and the m bases read once, [16, C] Jacobian sums
+            # written; the doublings, mixed adds and tree adds these scalars
+            # need (commit_work)
+            (C, _, m), _ = spec
+            nbytes, ops = 64 * (C * m + 2 * m + 3 * C), work["commit"][0] * MM_OPS
         elif name == "ntt_butterfly":
             sa, sw = spec
             n = numel(sa) // 16
@@ -812,7 +973,7 @@ def main() -> None:
             # this run's digits (dead slots add nothing; the carry scan's adds
             # are this design's, not the function's)
             nbytes = 64 * npts + 8 * Wtot * n + 3 * 64 * Wtot * nb
-            ops = live_slots * (11 if distinct else 17) * MM_OPS
+            ops = work["live_slots"] * (11 if distinct else 17) * MM_OPS
         else:
             (Wb, R, _, CL), distinct = spec
             n = Wb * R * CL
@@ -841,14 +1002,20 @@ def main() -> None:
             # a lane's R mixed adds, then its carry scan's levels and the fix
             (_, n), _, lanes, _, distinct = spec
             return (n // lanes) * (11 if distinct else 17) + 16 * ((lanes - 1).bit_length() + 1)
+        if name == "commit_dbl_add":
+            return work["commit"][1]
         (_, CW), W, c = spec
         return 7 * W * c + 16 * W
 
+    def host_ints(t) -> list[int]:
+        """[..., 16, B] limbs -> the elements as ints, lane fastest."""
+        return limbs_to_ints(t.movedim(-2, -1).reshape(-1, 16).cpu().numpy())
+
     rows = []
-    live_slots = 0
+    work = {}  # data-dependent work of this run's inputs, for the bounds
     for name in cf.KERNELS:
-        # bucket_scan is no longer on the main path: it is timed at the
-        # shape the ECDSA run gave it before (91 windows x 2^15 points)
+        # the kernels off the main path are timed at the shapes it gave them
+        # before their fusion
         spec = (largest_e.get(name) or largest15.get(name) or largest9.get(name)
                 or OFF_PATH_SHAPES[name])[1]
         if name == "colntt":
@@ -865,9 +1032,14 @@ def main() -> None:
             err = max_err(cf.bucket_sums_fused(*args), cf.bucket_sums_fused_plain(*args))
             if err:
                 raise AssertionError(f"bucket_sums_fused at {spec} disagrees with its plain version")
-            live_slots = int((args[2] > 0).sum())
+            work["live_slots"] = int((args[2] > 0).sum())
         else:
             fid, args, err = check(name, spec)
+        if name == "fermat_inv":
+            steps = [divsteps_needed(x, P[fid]) for x in host_ints(args[0])]
+            work["inv_batches"] = sum(max(1, -(-d // 30)) for d in steps)
+        if name == "commit_dbl_add":
+            work["commit"] = commit_work(host_ints(args[0]), spec[0][2])
         reps = 3 if name in ("bucket_scan", "bucket_sums_fused") else 10
         ms = time_ms(lambda: run(name, fid, args, plain=False), reps)
         plain_ms = time_ms(lambda: run(name, fid, args, plain=True), 1)
@@ -904,6 +1076,25 @@ def main() -> None:
             nb = spec[0][2]
             log(f"[timing] bucket_weight: {design_adds(spec)} complete adds per window where "
                 f"the weighted sum needs {2 * nb - 2} (the suffix scans' extra adds)")
+        if name == "fermat_inv":
+            log(f"[timing] fermat_inv: its longest thread runs {-(-max(steps) // 30)} batches of "
+                f"30 divsteps ({max(steps)} divsteps before g = 0), each batch's 2x2 matrix "
+                f"applied to 9-limb (f, g) and (d, e); the Fermat chain ran about 330 dependent "
+                f"Montgomery products")
+        if name == "commit_dbl_add":
+            # the same columns at m = 1024, the longest the path sends it
+            C = spec[0][0]
+            spec_big = ((C, 16, 1024), (16, 1024))
+            args_big = commit_case(gen, torch, cf, spec_big, P)
+            if max_err(cf.commit_dbl_add(*args_big), cf.commit_dbl_add_plain(*args_big)):
+                raise AssertionError(f"commit_dbl_add at {spec_big} disagrees with its plain "
+                                     f"version")
+            ms_big = time_ms(lambda: cf.commit_dbl_add(*args_big), reps)
+            work["commit"] = commit_work(host_ints(args_big[0]), 1024)
+            bms_big, by_big = bound(name, spec_big)
+            log(f"[timing] commit_dbl_add at {spec_big}: {ms_big:.4f} ms (bound {bms_big:.4f} ms "
+                f"by {by_big}; a chain of {work['commit'][1]} dependent Montgomery products), "
+                f"kernel == plain")
 
     # --- 5b. one whole MSM at the ECDSA advice commit's shape: old vs fused buckets ---------
     def old_tail(dc, S, W: int, c: int, CL2: int):

@@ -9,8 +9,8 @@ form commit against ``g_lagrange`` without an inverse NTT.
 
 Commitments on the card take the JAX package's two paths by column length
 m: up to ``COMMIT_SIMPLE_MAX`` points an MSB-first double-and-add over the
-254 scalar bits with the ``ec_madd`` kernel (``commit_double_and_add``, the
-small branch of the JAX ``_commit_chunk_jit``; every commit at k <= 10),
+254 scalar bits with the ``commit_dbl_add`` kernel (``commit_double_and_add``,
+the small branch of the JAX ``_commit_chunk_jit``; every commit at k <= 10),
 above it a Pippenger MSM (ops/ec_device.py, ``distinct=True`` as SRS bases
 allow). Either way one call commits all the columns a transcript phase
 writes. SRS generation (``setup``) and ``write`` are not part of this port;
@@ -24,6 +24,7 @@ import os
 import numpy as np
 import torch
 
+from ..ops import cuda_field as cf
 from ..ops.ec_device import DeviceCurve, msm_many_device, msm_window_bits
 from ..ops.limbs import N_LIMBS, DeviceField
 from ..utils.curves import BN254_G1
@@ -139,20 +140,13 @@ class ParamsKZG:
 @torch.inference_mode()
 def commit_double_and_add(dc: DeviceCurve, fr_df: DeviceField, vals_mont, bases):
     """[C, 16, m] Montgomery columns against the first m of the affine bases
-    (Ax, Ay) -> Jacobian [16, C] commitments: every lane runs an MSB-first
-    double-and-add over its scalar's 254 bits (one ec_double and one ec_madd
-    launch per bit for all C * m lanes), then the lanes of each column are
-    summed by a halving tree. The small branch of the JAX package's
-    ``ParamsKZG._commit_chunk_jit`` (its kzg.py:499-519)."""
-    C, _, m = vals_mont.shape
-    Am = tuple(t[:, :m].contiguous() for t in bases)  # [16, m], shared by the C columns
-    bits = window_digits(fr_df, vals_mont, 1).flip(-2) != 0  # [C, 254, m], MSB first
-    acc = dc.identity((C, m), vals_mont.device)
-    for w in range(bits.shape[-2]):
-        acc = dc._double(acc)
-        acc = dc.select(bits[:, w], dc._madd(acc, Am, False), acc)
-    X, Y, Z = dc.tree_reduce(acc)  # [C, 16, 1]
-    return tuple(t[..., 0].transpose(0, 1) for t in (X, Y, Z))
+    (Ax, Ay) of dc's curve -> Jacobian [16, C] commitments: every lane runs
+    an MSB-first double-and-add over its scalar's 254 bits, then the lanes of
+    each column are summed by a halving tree. The small branch of the JAX
+    package's ``ParamsKZG._commit_chunk_jit`` (its kzg.py:499-519), as one
+    ``commit_dbl_add`` call on the canonical scalars (its plain version on
+    CPU tensors)."""
+    return cf.commit_dbl_add(fr_df._from_mont(vals_mont), *bases)
 
 
 def _pack_affine(df: DeviceField, X, Y, Z):

@@ -6,8 +6,9 @@
 //     branch and the identity and inverse cases;
 //   _ec_double_kernel (via ec_double): dbl-2009-l with a = 0;
 //   _ec_madd_kernel (via ec_madd; its body is _madd_core): the standalone
-//     mixed add, Jacobian + affine (madd-2007-bl, (0, 0) = affine identity),
-//     which the small-column commit path (m <= 1024) runs once per scalar bit;
+//     mixed add, Jacobian + affine (madd-2007-bl, (0, 0) = affine identity);
+//     ec_add, ec_double and ec_madd stay as checked literal ports, off every
+//     path;
 //   _bucket_scan_kernel (via bucket_scan): the MSM bucket accumulation, an
 //     inclusive segmented scan of mixed adds (madd-2007-bl, the arithmetic of
 //     _madd_core) over bucket-sorted affine bases; kept as the literal port
@@ -24,7 +25,15 @@
 //     two within-block suffix scans, D = TT - TA, the log2(CL2) doublings and
 //     + TS), one block per window;
 //   msm_combine: the MSB-first window combine (c doublings and one add per
-//     window), one thread per column.
+//     window), one thread per column;
+// and, as one fused kernel in two launches, the small-column commit
+// (m <= 1024, every commit at k <= 10; halo2_lib_tpu/backend/kzg.py:499-519,
+// a lax.scan of _ec_double_kernel and _ec_madd_kernel steps, then the
+// _ec_add_kernel lane tree of ops/ec_device.py:308):
+//   commit_dbl_add: a chain launch, one thread per (column, lane) running its
+//     scalar's double-and-add from the top bit with the accumulator in
+//     registers and the mixed add only where the bit is 1, then a tree launch
+//     of one block per column over the lanes' sums in shared memory.
 //
 // Bound on the H100: integer multiply issue. A complete add is 16 Montgomery
 // products on its add path (the doubling branch, taken on no lane of an MSM
@@ -34,8 +43,10 @@
 // of them an SM holds: a lane of bucket_weight runs 2 * R2 + 3 log2(CL2)
 // complete adds in order, a column of msm_combine W * c doublings and W adds
 // (about 2400 products at W = 26, c = 10), a bucket_sums chain R = n / CL
-// mixed adds (128 at n = 2^15), each product a dependent chain of 32-bit
-// multiply-adds (fp256.cuh: PTX carry chains).
+// mixed adds (128 at n = 2^15), a commit_dbl_add lane up to 254 doublings
+// and a mixed add per set bit (a warp runs the mixed add wherever one of
+// its lanes needs it: about 254 x 18 products), each product a dependent
+// chain of 32-bit multiply-adds (fp256.cuh: PTX carry chains).
 //
 // Design: one thread per point (or chain), every coordinate in registers; the
 // formulas are those of ops/ec_device.py, and the fused kernels run that
@@ -56,7 +67,13 @@
 // run ends (no per-step output), and runs the lane carries in a second launch
 // of one block per window. bucket_weight reads each bucket sum once
 // and keeps the row chain in registers and the suffix scans in shared memory;
-// msm_combine replaces 286 launches of a few dozen threads each. Left for
+// msm_combine replaces 286 launches of a few dozen threads each.
+// commit_dbl_add replaces 254 x 5 launches and a lane tree per commit: one
+// thread walks its lane's bits with the accumulator in registers, the mixed
+// add a branch taken only where the bit is 1 (and the doubling branch only
+// where it is met), then one block sums a column's lanes in shared memory;
+// both launches call one out-of-line copy of the product (MulCalled), which
+// keeps their loop bodies inside the instruction cache. Left for
 // later: warp-cooperative bucket runs and shorter chains (they change the
 // order of the adds, so the Jacobian sums, though not the affine points), a
 // prefetch of the next base in the chains, and fewer idle threads in the last
@@ -92,17 +109,37 @@ __device__ __forceinline__ Jac load_jac(const int32_t* __restrict__ x,
   return P;
 }
 
-__device__ __forceinline__ Jac ec_double_jac(const Jac& P) {
-  const Fe A = mul<FQ>(P.x, P.x), B = mul<FQ>(P.y, P.y);
+// The Fq Montgomery product as a policy of the point formulas: inlined at
+// each site (the default), or one out-of-line copy that every site calls.
+// A formula inlines about 300 instructions a product; a loop body of a
+// doubling and a mixed add (25 products with the doubling branch) then
+// outgrows the SM's instruction cache, and a chain run by a warp or two an
+// SM waits on instruction fetch (commit_chain_k: 2.5x slower inlined, the
+// same result).
+struct MulInline {
+  __device__ __forceinline__ Fe operator()(const Fe& a, const Fe& b) const {
+    return mul<FQ>(a, b);
+  }
+};
+__device__ __noinline__ Fe mul_called(Fe a, Fe b) { return mul<FQ>(a, b); }
+struct MulCalled {
+  __device__ __forceinline__ Fe operator()(const Fe& a, const Fe& b) const {
+    return mul_called(a, b);
+  }
+};
+
+template <class M = MulInline>
+__device__ __forceinline__ Jac ec_double_jac(const Jac& P, M mm = M()) {
+  const Fe A = mm(P.x, P.x), B = mm(P.y, P.y);
   const Fe E = add<FQ>(dbl<FQ>(A), A);
   const Fe tXB = add<FQ>(P.x, B);
-  const Fe C = mul<FQ>(B, B), tXB2 = mul<FQ>(tXB, tXB), F_ = mul<FQ>(E, E);
+  const Fe C = mm(B, B), tXB2 = mm(tXB, tXB), F_ = mm(E, E);
   const Fe D = dbl<FQ>(sub<FQ>(sub<FQ>(tXB2, A), C));
   Jac out;
   out.x = sub<FQ>(F_, dbl<FQ>(D));
   const Fe C4 = dbl<FQ>(dbl<FQ>(C));
-  out.y = sub<FQ>(mul<FQ>(E, sub<FQ>(D, out.x)), dbl<FQ>(C4));
-  out.z = dbl<FQ>(mul<FQ>(P.y, P.z));
+  out.y = sub<FQ>(mm(E, sub<FQ>(D, out.x)), dbl<FQ>(C4));
+  out.z = dbl<FQ>(mm(P.y, P.z));
   return out;
 }
 
@@ -115,28 +152,29 @@ __device__ __forceinline__ Jac ec_double_jac(const Jac& P) {
 // for the doubling until H and r are known; each of Q's coordinates and both
 // squares die as soon as they are used (S1 = Y1 (Z2 Z2Z2) and S2 = Y2 (Z1
 // Z1Z1), the same field elements as Y1 Z2 Z2Z2 and Y2 Z1 Z1Z1).
-__device__ __forceinline__ Jac ec_add_complete(const Jac& P, const Jac& Q) {
+template <class M = MulInline>
+__device__ __forceinline__ Jac ec_add_complete(const Jac& P, const Jac& Q, M mm = M()) {
   if (is_zero(Q.z)) return P;
   if (is_zero(P.z)) return Q;
-  const Fe Z1Z1 = mul<FQ>(P.z, P.z);
-  const Fe Z2Z2 = mul<FQ>(Q.z, Q.z);
+  const Fe Z1Z1 = mm(P.z, P.z);
+  const Fe Z2Z2 = mm(Q.z, Q.z);
   const Fe zz = add<FQ>(P.z, Q.z);
-  const Fe ZZ = sub<FQ>(sub<FQ>(mul<FQ>(zz, zz), Z1Z1), Z2Z2);  // 2 Z1 Z2
-  const Fe S1 = mul<FQ>(P.y, mul<FQ>(Q.z, Z2Z2));
-  const Fe U1 = mul<FQ>(P.x, Z2Z2);
-  const Fe H = sub<FQ>(mul<FQ>(Q.x, Z1Z1), U1);
-  const Fe r_ = sub<FQ>(mul<FQ>(Q.y, mul<FQ>(P.z, Z1Z1)), S1);
-  if (is_zero(H) && is_zero(r_)) return ec_double_jac(P);
+  const Fe ZZ = sub<FQ>(sub<FQ>(mm(zz, zz), Z1Z1), Z2Z2);  // 2 Z1 Z2
+  const Fe S1 = mm(P.y, mm(Q.z, Z2Z2));
+  const Fe U1 = mm(P.x, Z2Z2);
+  const Fe H = sub<FQ>(mm(Q.x, Z1Z1), U1);
+  const Fe r_ = sub<FQ>(mm(Q.y, mm(P.z, Z1Z1)), S1);
+  if (is_zero(H) && is_zero(r_)) return ec_double_jac(P, mm);
   Jac out;
-  out.z = mul<FQ>(ZZ, H);
-  const Fe HH = mul<FQ>(H, H);
+  out.z = mm(ZZ, H);
+  const Fe HH = mm(H, H);
   const Fe I = dbl<FQ>(dbl<FQ>(HH));
-  const Fe J = mul<FQ>(H, I);
-  const Fe V = mul<FQ>(U1, I);
+  const Fe J = mm(H, I);
+  const Fe V = mm(U1, I);
   const Fe rr = dbl<FQ>(r_);
-  out.x = sub<FQ>(sub<FQ>(mul<FQ>(rr, rr), J), dbl<FQ>(V));
-  const Fe S1J = mul<FQ>(S1, J);
-  out.y = sub<FQ>(mul<FQ>(rr, sub<FQ>(V, out.x)), dbl<FQ>(S1J));
+  out.x = sub<FQ>(sub<FQ>(mm(rr, rr), J), dbl<FQ>(V));
+  const Fe S1J = mm(S1, J);
+  out.y = sub<FQ>(mm(rr, sub<FQ>(V, out.x)), dbl<FQ>(S1J));
   return out;
 }
 
@@ -509,6 +547,121 @@ msm_combine_k(const int32_t* __restrict__ tx, const int32_t* __restrict__ ty,
   store(oz, 16, C, 0, 0, col, res.z);
 }
 
+// --- the small-column commit: double-and-add chains, then the lane tree ------
+// The function of the per-bit composition it replaces (ec_double, then
+// ec_madd with the doubling branch, selected by the bit, 254 times; then
+// the halving tree of ec_add), with the same point ops in the same order, so
+// the Jacobian sums are the same triples.
+//
+// The mixed add of ec_madd(P, x2, y2, false) with its cases taken by
+// branches: (0, 0) returns P, an identity P returns (x2, y2, 1), P == (x2,
+// y2) returns dbl-2009-l of (x2, y2, 1) (the doubling branch's formulas:
+// its Z3 = 2 y2 * 1 is 2 y2), else the add path. The doubling runs only on
+// the lanes that meet it.
+template <class M>
+__device__ __forceinline__ Jac ec_madd_branch(const Jac& P, const Fe& x2, const Fe& y2, M mm) {
+  if (is_zero(x2) && is_zero(y2)) return P;
+  if (is_zero(P.z)) {
+    Jac o;
+    o.x = x2;
+    o.y = y2;
+    o.z = one<FQ>();
+    return o;
+  }
+  const Fe &X1 = P.x, &Y1 = P.y, &Z1 = P.z;
+  const Fe Z1Z1 = mm(Z1, Z1);
+  const Fe H = sub<FQ>(mm(x2, Z1Z1), X1);
+  const Fe rr = dbl<FQ>(sub<FQ>(mm(mm(y2, Z1), Z1Z1), Y1));
+  if (is_zero(H) && is_zero(rr)) {
+    Jac A;
+    A.x = x2;
+    A.y = y2;
+    A.z = one<FQ>();
+    return ec_double_jac(A, mm);
+  }
+  const Fe HH = mm(H, H);
+  const Fe I = dbl<FQ>(dbl<FQ>(HH));
+  const Fe ZH = add<FQ>(Z1, H);
+  const Fe J = mm(H, I), V = mm(X1, I);
+  Jac out;
+  out.x = sub<FQ>(sub<FQ>(mm(rr, rr), J), dbl<FQ>(V));
+  out.z = sub<FQ>(sub<FQ>(mm(ZH, ZH), Z1Z1), HH);
+  out.y = sub<FQ>(mm(rr, sub<FQ>(V, out.x)), dbl<FQ>(mm(Y1, J)));
+  return out;
+}
+
+// Launch 1, the chains: one thread per (column, lane), the accumulator in
+// registers from the identity. The thread reads its scalar's 254 bits (the
+// canonical scalar's eight words, loaded once) from the top: doubling, then
+// the mixed add where the bit is 1. Steps above the top set bit are skipped:
+// there the accumulator is (0, 0, 0), which dbl-2009-l maps to itself, so
+// the result is unchanged. Every product is a call of one out-of-line copy
+// (MulCalled), so the step's code stays in the instruction cache. scal:
+// [C, 16, m] canonical scalars; ax, ay: [16, ldb] affine bases, lane e of
+// every column adding base e; sx, sy, sz: [C, 16, m] each lane's sum.
+constexpr int COMMIT_THREADS = 64;
+
+__global__ void __launch_bounds__(COMMIT_THREADS)
+commit_chain_k(const int32_t* __restrict__ scal, const int32_t* __restrict__ ax,
+               const int32_t* __restrict__ ay, int64_t ldb, int32_t* __restrict__ sx,
+               int32_t* __restrict__ sy, int32_t* __restrict__ sz, int64_t C, int64_t m) {
+  const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= C * m) return;
+  const int64_t col = i / m, e = i % m;
+  Fe s = load(scal, C, m, col, e);
+  s.w[7] &= (1u << 30) - 1;  // bits 0..253: the 254 one-bit windows
+  int top = -1;
+#pragma unroll
+  for (int k = 0; k < 8; k++)
+    if (s.w[k]) top = 32 * k + 31 - __clz(s.w[k]);
+  Jac acc = identity();
+  if (top >= 0) {
+    const Fe x2 = load(ax, 1, ldb, 0, e), y2 = load(ay, 1, ldb, 0, e);
+    for (int b = top; b >= 0; b--) {
+      uint32_t word = 0;
+#pragma unroll
+      for (int k = 0; k < 8; k++)
+        if ((b >> 5) == k) word = s.w[k];
+      acc = ec_double_jac(acc, MulCalled());
+      if ((word >> (b & 31)) & 1u) acc = ec_madd_branch(acc, x2, y2, MulCalled());
+    }
+  }
+  store(sx, 16, m, col, 0, e, acc.x);
+  store(sy, 16, m, col, 0, e, acc.y);
+  store(sz, 16, m, col, 0, e, acc.z);
+}
+
+// Launch 2, the tree: one block per column, its m lane sums in shared
+// memory. The halving tree of DeviceCurve.tree_reduce, level by level:
+// point i of a level is the sum of points 2i and 2i + 1 of the level below,
+// an odd last point carried unchanged. Point i of level d sits at slot i 2^d,
+// so each add writes the slot of its left operand, which no other pair
+// reads. The adds call the out-of-line product, as the chains do. out:
+// [16, C].
+constexpr int TREE_THREADS = 128;
+
+__global__ void __launch_bounds__(TREE_THREADS)
+commit_tree_k(const int32_t* __restrict__ sx, const int32_t* __restrict__ sy,
+              const int32_t* __restrict__ sz, int32_t* __restrict__ ox,
+              int32_t* __restrict__ oy, int32_t* __restrict__ oz, int m) {
+  extern __shared__ Jac pts[];  // [m]
+  const int64_t col = blockIdx.x, C = gridDim.x;
+  const int tid = threadIdx.x, T = blockDim.x;
+  for (int l = tid; l < m; l += T) pts[l] = load_jac(sx, sy, sz, C, m, col, l);
+  __syncthreads();
+  for (int n = m, s = 1; n > 1; s <<= 1) {
+    const int half = n >> 1;
+    for (int i = tid; i < half; i += T)
+      pts[2 * i * s] = ec_add_complete(pts[2 * i * s], pts[(2 * i + 1) * s], MulCalled());
+    __syncthreads();
+    n = half + (n & 1);
+  }
+  if (tid != 0) return;
+  store(ox, 16, C, 0, 0, col, pts[0].x);
+  store(oy, 16, C, 0, 0, col, pts[0].y);
+  store(oz, 16, C, 0, 0, col, pts[0].z);
+}
+
 extern "C" int h2_ec_add(const int32_t* x1, const int32_t* y1, const int32_t* z1,
                          const int32_t* x2, const int32_t* y2, const int32_t* z2, int32_t* ox,
                          int32_t* oy, int32_t* oz, int64_t L, int64_t B, void* stream) {
@@ -603,5 +756,30 @@ extern "C" int h2_bucket_sums(const int32_t* bases, const int32_t* order, const 
   const int threads = CL < CARRY_THREADS ? (int)CL : CARRY_THREADS;
   bucket_carry_k<<<(unsigned)Wtot, threads, smem, s>>>(b4, order, digits, sx, sy, sz, tail,
                                                        (int)n, (int)CL, (int)nbk);
+  return (int)cudaGetLastError();
+}
+
+// Largest m: a column's m lane sums in one block's shared memory.
+constexpr int COMMIT_MAX_LANES = 2048;
+
+// scal: [C, 16, m] canonical scalars; ax, ay: [16, ldb] affine bases (ldb >=
+// m); scratch: [3, C, 16, m]; ox, oy, oz: [16, C].
+extern "C" int h2_commit_dbl_add(const int32_t* scal, const int32_t* ax, const int32_t* ay,
+                                 int64_t ldb, int32_t* scratch, int32_t* ox, int32_t* oy,
+                                 int32_t* oz, int64_t C, int64_t m, void* stream) {
+  if (m < 1 || m > COMMIT_MAX_LANES || ldb < m) return (int)cudaErrorInvalidValue;
+  if (C == 0) return (int)cudaGetLastError();
+  cudaStream_t s = (cudaStream_t)stream;
+  int32_t *sx = scratch, *sy = scratch + C * 16 * m, *sz = scratch + 2 * C * 16 * m;
+  const int64_t n = C * m;
+  commit_chain_k<<<(unsigned)((n + COMMIT_THREADS - 1) / COMMIT_THREADS), COMMIT_THREADS, 0, s>>>(
+      scal, ax, ay, ldb, sx, sy, sz, C, m);
+  int rc = (int)cudaGetLastError();
+  if (rc) return rc;
+  const size_t smem = (size_t)m * sizeof(Jac);
+  rc = (int)cudaFuncSetAttribute(commit_tree_k, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                 (int)smem);
+  if (rc) return rc;
+  commit_tree_k<<<(unsigned)C, TREE_THREADS, smem, s>>>(sx, sy, sz, ox, oy, oz, (int)m);
   return (int)cudaGetLastError();
 }

@@ -16,7 +16,7 @@
 
 namespace h2 {
 
-// p, -p^-1 mod 2^32, R mod p (Montgomery one) and p - 2 (Fermat exponent).
+// p, -p^-1 mod 2^32 and R mod p (Montgomery one).
 static __constant__ uint32_t kP[2][8] = {
     {0xf0000001u, 0x43e1f593u, 0x79b97091u, 0x2833e848u,
      0x8181585du, 0xb85045b6u, 0xe131a029u, 0x30644e72u},
@@ -28,11 +28,6 @@ static __constant__ uint32_t kOne[2][8] = {
      0x7879462eu, 0x666ea36fu, 0x9a07df2fu, 0x0e0a77c1u},
     {0xc58f0d9du, 0xd35d438du, 0xf5c70b3du, 0x0a78eb28u,
      0x7879462cu, 0x666ea36fu, 0x9a07df2fu, 0x0e0a77c1u}};
-static __constant__ uint32_t kPm2[2][8] = {
-    {0xefffffffu, 0x43e1f593u, 0x79b97091u, 0x2833e848u,
-     0x8181585du, 0xb85045b6u, 0xe131a029u, 0x30644e72u},
-    {0xd87cfd45u, 0x3c208c16u, 0x6871ca8du, 0x97816a91u,
-     0x8181585du, 0xb85045b6u, 0xe131a029u, 0x30644e72u}};
 
 struct Fe {
   uint32_t w[8];

@@ -23,14 +23,22 @@ wrapper            replaces (halo2_lib_tpu/ops/pallas_field.py)    source
 ``bucket_sums_fused`` ``_bucket_scan_kernel`` + lane carry and pick   ``ec_kernels.cu``
 ``bucket_weight``  ``_ec_add_kernel`` + ``_ec_double_kernel`` loops ``ec_kernels.cu``
 ``msm_combine``    ``_ec_double_kernel`` + ``_ec_add_kernel`` loops ``ec_kernels.cu``
+``commit_dbl_add`` ``_ec_double_kernel`` + ``_ec_madd_kernel`` scan,   ``ec_kernels.cu``
+                   then the ``_ec_add_kernel`` lane tree
 =================  =============================================  ==========================
 
-The last three fuse what a Pippenger MSM ran as loops of single point ops
+``bucket_sums_fused``, ``bucket_weight`` and ``msm_combine`` fuse what a
+Pippenger MSM ran as loops of single point ops
 (``halo2_lib_tpu/ops/ec_device.py:463-688``): the bucket accumulation with
 its lane-carry scan and pick (two launches, chains then carries;
 ``bucket_scan``, the literal port of the TPU kernel, stays as a checked
 reference off the MSM's path), the weighted bucket reduction and the window
-combine, each in the loops' order.
+combine, each in the loops' order. ``commit_dbl_add`` fuses the small-column
+commit (``halo2_lib_tpu/backend/kzg.py:499-519``: 254 scan steps of a
+doubling and a selected mixed add, then ``tree_reduce``) into two launches;
+``ec_double``, ``ec_madd`` and ``ec_add`` stay as the checked literal ports,
+off every path. ``fermat_inv`` computes the Fermat kernel's function (the
+Montgomery-form inverse) by a binary-GCD inversion (safegcd divsteps).
 
 They are compiled with ``nvcc`` for ``sm_90a`` into one shared library with
 a plain C interface, at first use, under ``halo2_lib_tpu_torch/_build/``
@@ -79,6 +87,7 @@ KERNELS = (
     "bucket_sums_fused",
     "bucket_weight",
     "msm_combine",
+    "commit_dbl_add",
 )
 # launches of each kernel since the last reset_launches(), and the operand
 # shapes of each kernel's largest launch in that time (chip_smoke.py times
@@ -185,11 +194,12 @@ def _lib():
         lib.h2_mul_chain.argtypes = [I, P, P, P, I64, I, P]
         lib.h2_bucket_weight.argtypes = [P] * 6 + [I64, I64, I, P]
         lib.h2_msm_combine.argtypes = [P] * 6 + [I64, I, I, P]
+        lib.h2_commit_dbl_add.argtypes = [P] * 3 + [I64] + [P] * 4 + [I64, I64, P]
         for fn in (
             "h2_mont_mul", "h2_field_add", "h2_field_sub", "h2_fermat_inv",
             "h2_ntt_butterfly", "h2_colntt", "h2_ec_add", "h2_ec_double", "h2_ec_madd",
             "h2_bucket_scan", "h2_bucket_sums", "h2_bucket_weight", "h2_msm_combine",
-            "h2_mul_chain",
+            "h2_commit_dbl_add", "h2_mul_chain",
         ):
             getattr(lib, fn).restype = I
         _LIB = lib
@@ -842,6 +852,40 @@ def msm_combine_plain(T, windows: int, window_bits: int):
     return tuple(t.to(torch.int32) for t in res)
 
 
+def _tree64(P, lanes: int, c: _Consts):
+    """Halving tree of [16, K * lanes] point rows, every `lanes`-lane block
+    summed on its own in DeviceCurve.tree_reduce's order (level by level,
+    lanes 2i and 2i + 1, an odd last lane carried) -> [16, K]."""
+    P = tuple(t.reshape(N_LIMBS, -1, lanes) for t in P)
+    n = lanes
+    while n > 1:
+        half = n // 2
+        even = tuple(t[..., 0 : 2 * half : 2].reshape(N_LIMBS, -1) for t in P)
+        odd = tuple(t[..., 1 : 2 * half : 2].reshape(N_LIMBS, -1) for t in P)
+        s = tuple(t.reshape(N_LIMBS, -1, half) for t in ec_add64(even, odd, c))
+        P = tuple(torch.cat([a, t[..., -1:]], -1) for a, t in zip(s, P)) if n % 2 else s
+        n = P[0].shape[-1]
+    return tuple(t[..., 0] for t in P)
+
+
+def commit_dbl_add_plain(scalars, Ax, Ay):
+    """The small-column commit of commit_dbl_add on int64 rows: every
+    (column, lane) at once, for the 254 scalar bits from the top, ec_double64
+    and then ec_madd64 (with its doubling branch) kept where the bit is 1;
+    then each column's halving tree of ec_add64."""
+    C, _, m = scalars.shape
+    c = _consts(FQ, scalars.device)
+    s = scalars.to(torch.int64).permute(1, 0, 2).reshape(N_LIMBS, C * m)  # lane = col * m + e
+    x2, y2 = (t[:, :m].to(torch.int64).repeat(1, C) for t in (Ax, Ay))
+    zero = torch.zeros((N_LIMBS, C * m), dtype=torch.int64, device=scalars.device)
+    acc = (zero, zero, zero)
+    for b in range(253, -1, -1):
+        bit = ((s[b // 16] >> (b % 16)) & 1) != 0
+        acc = ec_double64(acc, c)
+        acc = tuple(torch.where(bit, a, d) for a, d in zip(ec_madd64(acc, x2, y2, False, c), acc))
+    return tuple(t.to(torch.int32) for t in _tree64(acc, m, c))
+
+
 # --- wrappers ------------------------------------------------------------------------
 
 
@@ -1171,4 +1215,50 @@ def msm_combine(T, windows: int, window_bits: int):
     )
     _check_rc(rc, "msm_combine")
     _count("msm_combine", C * windows * window_bits, ((N_LIMBS, C * windows), windows, window_bits))
+    return tuple(outs)
+
+
+# longest column commit_dbl_add takes on the card (its lane tree holds a
+# column's points in one block's shared memory)
+COMMIT_MAX_LANES = 2048
+
+
+def commit_dbl_add(scalars, Ax, Ay):
+    """Small-column MSM by double-and-add: sum_e scalars[i, e] * A_e for each
+    column i.
+
+    scalars: int32[C, 16, m] canonical (not Montgomery) Fr scalars; (Ax, Ay):
+    int32[16, n] Montgomery affine bases (n >= m, the first m used, shared by
+    the C columns; (0, 0) = identity). Returns Jacobian (X, Y, Z), each
+    int32[16, C]: the point ops of halo2_lib_tpu/backend/kzg.py:499-519 in
+    their order (per lane, for bit 253 down to 0, a doubling and, where the
+    bit is 1, the mixed add with its doubling branch; then the lanes'
+    halving tree), so the same Jacobian triples as the per-bit composition
+    of ec_double, ec_madd and ec_add launches it replaces.
+
+    On the card, two launches: the chains (one thread per (column, lane), the
+    accumulator in registers, the mixed add only where the bit is 1), then
+    the tree (one block per column, its m lane sums in shared memory; m <=
+    COMMIT_MAX_LANES). Bound by one thread's chain: 254 doublings of 7
+    Montgomery products and a mixed add of 11 per set bit."""
+    if scalars.dim() != 3 or scalars.shape[1] != N_LIMBS or scalars.shape[2] < 1:
+        raise ValueError(f"expected scalars [C, 16, m >= 1], got {tuple(scalars.shape)}")
+    C, _, m = scalars.shape
+    if Ax.shape != Ay.shape or Ax.dim() != 2 or Ax.shape[0] != N_LIMBS or Ax.shape[1] < m:
+        raise ValueError(f"bases {tuple(Ax.shape)}, {tuple(Ay.shape)} are not [16, n >= {m}]")
+    if _on_cpu(scalars, Ax, Ay):
+        return commit_dbl_add_plain(scalars, Ax, Ay)
+    if m > COMMIT_MAX_LANES:
+        raise ValueError(f"column length {m} > {COMMIT_MAX_LANES}")
+    sc, ax, ay = scalars.contiguous(), Ax.contiguous(), Ay.contiguous()
+    outs = [torch.empty((N_LIMBS, C), dtype=torch.int32, device=sc.device) for _ in range(3)]
+    if C == 0:
+        return tuple(outs)
+    scratch = torch.empty((3, C, N_LIMBS, m), dtype=torch.int32, device=sc.device)
+    rc = _lib().h2_commit_dbl_add(
+        _ptr(sc), _ptr(ax), _ptr(ay), ax.shape[1], _ptr(scratch), *map(_ptr, outs), C, m,
+        _stream(sc),
+    )
+    _check_rc(rc, "commit_dbl_add")
+    _count("commit_dbl_add", C * m, (tuple(sc.shape), tuple(ax.shape)))
     return tuple(outs)

@@ -19,7 +19,10 @@ itself,
   and of the MSM tail of ``_msm_from_digits`` (window sums and combined
   result) on the bucket sums of ``msm_tail_case_points``, and of the bucket
   accumulation ``_bucket_sums`` (both ``distinct`` values) on the bases and
-  window digits of ``bucket_sums_case``;
+  window digits of ``bucket_sums_case``, and of the small-column commit
+  (``commit_simple``: ``kzg.py``'s 254-step double-and-add scan and
+  ``tree_reduce``, before ``pack_out``) on the columns of
+  ``commit_simple_case``;
 * ``slice_k15.json`` (with ``--k15``): the SHA-256 of the JAX proof of the
   k=15 slice circuit at seed 0, which ``chip_smoke.py`` compares with;
 * ``ecdsa_k15.json`` (with ``--ecdsa``): the SHA-256 of the vk and of the
@@ -218,6 +221,7 @@ def freeze_ec() -> None:
         out[key] = digest(jax.jit(dc._madd_xla, static_argnums=2)(P1, A2, distinct))
     out.update(msm_tail_digests(dc, digest))
     out.update(bucket_sums_digests(dc, digest))
+    out.update(commit_simple_digest())
     with open(os.path.join(HERE, "ec_digests.json"), "w") as f:
         json.dump(out, f, indent=1)
         f.write("\n")
@@ -340,6 +344,62 @@ def bucket_sums_digests(dc, digest) -> dict:
     for key, distinct in (("bucket_sums", False), ("bucket_sums_distinct", True)):
         out[key] = digest(jed._bucket_sums(dc, A, order, d_sorted, (1 << c) - 1, distinct))
     return out
+
+
+def commit_simple_case() -> list[list[int]]:
+    """C = 3 columns of 16 Fr scalars from a fixed seed: random, with 0, 1
+    and r - 1 at lanes 0-2 of column 1 and r - 1, 0, 1 at lanes 10-12 of
+    column 2. The digest commits them at m = 16 and at their first 13 lanes
+    (an odd tree). tests/test_torch_commit.py makes the same ones."""
+    r = FR_BN254.p
+    rng = np.random.default_rng(41)
+    cols = []
+    for _ in range(3):
+        words = rng.integers(0, 1 << 62, size=(16, 5), dtype=np.int64)
+        cols.append([sum(int(w) << (62 * i) for i, w in enumerate(row)) % r for row in words])
+    cols[1][:3] = [0, 1, r - 1]
+    cols[2][10:13] = [r - 1, 0, 1]
+    return cols
+
+
+def commit_simple_digest() -> dict:
+    """The JAX package's small-column commit (the body of
+    ParamsKZG._commit_chunk_jit for m <= COMMIT_SIMPLE_MAX, kzg.py:499-519,
+    up to its pack_out: one-bit window digits reversed to MSB first, a
+    lax.scan of _double, _madd (distinct=False) and select, then
+    tree_reduce) against the k=8 SRS Lagrange bases, at m = 16 and m = 13:
+    ``commit_simple``, the SHA-256 of the two (X, Y, Z) [3, 16, C] results
+    one after the other."""
+    import jax
+    import jax.numpy as jnp
+
+    from halo2_lib_tpu.backend.kzg import window_digits
+    from halo2_lib_tpu.ops.limbs import DeviceField
+
+    params = ParamsKZG.read(os.path.join(ROOT, "params", "kzg_bn254_8.srs"))
+    dc = params.device_curve()
+    fr_df = DeviceField(FR_BN254)
+    Ax, Ay = params.affine_lagrange_bases()
+    vals = jnp.stack([fr_df.pack(c) for c in commit_simple_case()])  # [3, 16, 16]
+
+    def small(chunk, Ax, Ay):
+        b, _, m = chunk.shape
+        Am = tuple(jnp.broadcast_to(t[:, :m][None], (b, 16, m)) for t in (Ax, Ay))
+        bits = window_digits(fr_df, chunk, 1)[:, ::-1, :]
+        xs = bits.transpose(1, 0, 2).astype(bool)
+
+        def step(acc, brow):
+            acc = dc._double(acc)
+            return dc.select(brow, dc._madd(acc, Am, False), acc), None
+
+        acc, _ = jax.lax.scan(step, dc.identity((b, m)), xs)
+        return tuple(jnp.swapaxes(t[..., 0], 0, 1) for t in dc.tree_reduce(acc))
+
+    outs = []
+    for m in (16, 13):
+        P = jax.jit(small)(vals[:, :, :m], Ax, Ay)
+        outs.append(np.stack([np.asarray(t) for t in P]).astype("<u4").tobytes())
+    return {"commit_simple": hashlib.sha256(b"".join(outs)).hexdigest()}
 
 
 def madd_case_points():

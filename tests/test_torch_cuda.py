@@ -238,9 +238,10 @@ def test_msm_on_the_card_matches_cpu(dev):
 
 
 def test_small_commit_on_the_card_takes_ec_madd(dev):
-    """commit_columns at m <= COMMIT_SIMPLE_MAX: the double-and-add through
-    ec_madd on the card, no bucket scan, and the same points as the CPU's
-    Pippenger."""
+    """commit_columns at m <= COMMIT_SIMPLE_MAX: the double-and-add on the
+    card, as one commit_dbl_add launch (the fused ec_double and ec_madd
+    steps and ec_add tree; none of those single point ops launched), no
+    Pippenger, and the same points as the CPU's Pippenger."""
     import os
 
     from halo2_lib_tpu_torch.backend.kzg import ParamsKZG
@@ -255,4 +256,72 @@ def test_small_commit_on_the_card_takes_ec_madd(dev):
     cf.reset_launches()
     got = card.commit_columns(fr_df, vals.to(dev), card.affine_lagrange_bases(dev))
     assert torch.equal(got.cpu(), want)
-    assert cf.LAUNCHES["ec_madd"] == 254 and cf.LAUNCHES["bucket_scan"] == 0
+    assert cf.LAUNCHES["commit_dbl_add"] == 1 and cf.LAUNCHES["bucket_sums_fused"] == 0
+    assert cf.LAUNCHES["ec_madd"] == cf.LAUNCHES["ec_double"] == cf.LAUNCHES["ec_add"] == 0
+
+
+@pytest.mark.parametrize("fid", [cf.FR, cf.FQ])
+@pytest.mark.parametrize("shape", [(1, 16, 1), (11, 16, 1), (3, 16, 1000)])
+def test_fermat_inv_special_inputs(dev, fid, shape):
+    """The inversion on both fields against its plain version, with 0, 1,
+    p - 1, R mod p and 2^-1 among random values (the first elements, row
+    by row)."""
+    p = FR_BN254.p if fid == cf.FR else FQ_BN254.p
+    gen = torch.Generator().manual_seed(20 + fid)
+    a = _rand(shape, p, gen, "cpu")
+    flat = a.permute(1, 0, 2).reshape(16, -1)
+    special = [0, 1, p - 1, (1 << 256) % p, pow(2, -1, p)]
+    for j, v in enumerate(special[: flat.shape[1]]):
+        flat[:, j] = torch.tensor([(v >> (16 * i)) & 0xFFFF for i in range(16)], dtype=torch.int32)
+    a = flat.reshape(16, shape[0], shape[2]).permute(1, 0, 2).contiguous().to(dev)
+    cf.reset_launches()
+    got = cf.fermat_inv(fid, a)
+    assert cf.LAUNCHES["fermat_inv"] == 1
+    assert torch.equal(got, cf.fermat_inv_plain(fid, a))
+
+
+def _old_commit(dc, scalars, A):
+    """backend/kzg.py:commit_double_and_add before the fusion, on canonical
+    scalars: per bit (MSB first) ec_double, ec_madd and a select, then the
+    ec_add lane tree -> Jacobian [16, C]."""
+    C, _, m = scalars.shape
+    Am = tuple(t[:, :m].contiguous() for t in A)
+    acc = dc.identity((C, m), scalars.device)
+    for b in range(253, -1, -1):
+        bit = ((scalars[:, b // 16, :] >> (b % 16)) & 1) != 0
+        acc = cf.ec_double(acc)
+        acc = dc.select(bit, cf.ec_madd(acc, Am, False), acc)
+    X, Y, Z = dc.tree_reduce(acc)
+    return tuple(t[..., 0].transpose(0, 1) for t in (X, Y, Z))
+
+
+@pytest.mark.parametrize("C, m", [(1, 1), (3, 13), (2, 256)])
+def test_commit_dbl_add(dev, C, m):
+    """The fused small-column commit against its plain version and against
+    the per-bit composition of ec_double, ec_madd and ec_add launches it
+    replaced, on the k=8 SRS Lagrange bases, with scalars 0, 1 and r - 1,
+    an all-zero column (C = 3) and a (0, 0) base."""
+    import os
+
+    from halo2_lib_tpu_torch.backend.kzg import ParamsKZG
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    srs = ParamsKZG.read(os.path.join(root, "params", "kzg_bn254_8.srs"), device=dev)
+    A = tuple(t.clone() for t in srs.affine_lagrange_bases(dev))
+    if m > 3:
+        A[0][:, 3] = A[1][:, 3] = 0
+    gen = torch.Generator().manual_seed(C * m)
+    scal = _rand((C, 16, m), FR_BN254.p, gen, "cpu")
+    r = FR_BN254.p
+    for lane, v in enumerate((0, 1, r - 1)[:m]):
+        scal[0, :, lane] = torch.tensor([(v >> (16 * i)) & 0xFFFF for i in range(16)],
+                                        dtype=torch.int32)
+    if C == 3:
+        scal[2] = 0
+    scal = scal.to(dev)
+    dc = DeviceCurve(DeviceField(BN254_G1.base), BN254_G1)
+    cf.reset_launches()
+    got = cf.commit_dbl_add(scal, *A)
+    assert cf.LAUNCHES["commit_dbl_add"] == 1
+    for k, pl, old in zip(got, cf.commit_dbl_add_plain(scal, *A), _old_commit(dc, scal, A)):
+        assert torch.equal(k, pl) and torch.equal(k, old)
