@@ -20,7 +20,14 @@ printing its own lines; any failure raises and exits non-zero:
              composition it replaced (bucket_scan, the lane-carry scan of
              single ec_add launches, the pick and the fix; kept here, not in
              the package); colntt at A = 2..1024, with and without the mid,
-             ragged B, tw[0] random and the Montgomery one); commit_dbl_add
+             ragged B, tw[0] random and the Montgomery one); ntt_small at n =
+             2..2^11 and C = 1, 3, 12 and 65 columns, forward and inverse,
+             without diagonals, with the pre row, the post scalar (1/n), the
+             post row (shift^-i / n), and both with random twiddles, with 0,
+             1, p - 1 and R mod p among the values, also against the per-stage
+             composition it replaced (ntt_butterfly launches, the torch
+             interleave and the mont_mul scalings; kept here, not in the
+             package); commit_dbl_add
              at (C, m) = (1, 1), (3, 13), (8, 512) and (3, 1024) with
              scalars 0, 1 and r - 1, an all-zero column and a (0, 0) base,
              also against the per-bit composition it replaced (ec_double,
@@ -31,12 +38,19 @@ printing its own lines; any failure raises and exits non-zero:
 3. k=9     - keygen + create_proof of the golden circuit (seconds of each
              printed); the vk and proof bytes must equal the JAX package's
              goldens in tests/data/torch_goldens/. Its domains (2^9, 2^11)
-             take the radix-2 NTT (ntt_butterfly), and its commits (m = 2^9
-             <= 1024) the fused double-and-add, one commit_dbl_add launch per
-             commit call, never Pippenger, ec_madd, ec_double or ec_add. Then
-             one k=9 commit is timed three ways: the old per-bit loop,
-             commit_dbl_add (Jacobian-equal to it) and Pippenger (equal in
-             affine form).
+             take the radix-2 NTT, one ntt_small launch per NTT call (8),
+             and its commits (m = 2^9 <= 1024) the fused double-and-add, one
+             commit_dbl_add launch per commit call, never Pippenger,
+             ec_madd, ec_double or ec_add. Then one k=9 commit is timed three
+             ways: the old per-bit loop, commit_dbl_add (Jacobian-equal to
+             it) and Pippenger (equal in affine form).
+3b. phases - the two other k=9 circuits: the two-phase RLC circuit
+             (create_proof with phase_fns) and the RAM circuit (dynamic
+             lookup): keygen, create_proof, verify_proof and a tampered proof
+             rejected, vk and proof bytes equal to the JAX goldens
+             (multiphase_k9.npz, dynlookup_k9.npz); launches and the NTT
+             domains each took printed, one ntt_small launch per NTT call
+             below 2^12 points.
 4. k=15    - keygen -> create_proof -> verify_proof of the slice circuit (4
              advice + 1 lookup column, every column 2^15 rows), with a
              tampered proof rejected and the proof's SHA-256 held against the
@@ -48,21 +62,25 @@ printing its own lines; any failure raises and exits non-zero:
              witness and create_proof, then verify_proof and a tampered proof
              rejected; the proof's and the vk's SHA-256 held against the JAX
              package's (ecdsa_k15.json).
-             Kernel launch counts are reset just before phases 3, 4 and 4b
-             and read just after each; every kernel must have launched in the
-             phases whose paths run it: k=9 every kernel but colntt and the
-             Pippenger ones (bucket_sums_fused, bucket_weight, msm_combine);
-             k=15 and ECDSA every kernel but ntt_butterfly and
-             commit_dbl_add (the MSM is bucket_sums_fused, bucket_weight and
-             msm_combine, one launch each per MSM call). The literal ports
+             Kernel launch counts (and the NTT and commit calls) are reset
+             just before phases 3, 3b, 4 and 4b and read just after each;
+             every kernel must have launched in the phases whose paths run
+             it: k=9 every kernel but colntt and the Pippenger ones
+             (bucket_sums_fused, bucket_weight, msm_combine); k=15 and ECDSA
+             every kernel but ntt_small and commit_dbl_add (the MSM is
+             bucket_sums_fused, bucket_weight and msm_combine, one launch
+             each per MSM call). ntt_small launches once per NTT call below
+             2^12 points in every phase (none at k=15 and ECDSA, whose
+             domains are 2^15 and 2^17). The literal ports ntt_butterfly,
              ec_madd, ec_double, ec_add and bucket_scan run on no path: 0
-             launches in all three.
+             launches in all of them.
 5. timing  - every kernel again, at the largest shapes the main path gave it
-             (ec_madd, ec_double, ec_add and bucket_scan, off the path, at the
-             shapes they had on it before their fusion): kernel time, plain
-             version time and the bound, as one JSON line; the fused
-             kernels' and fermat_inv's serial chains on [timing] lines, and
-             commit_dbl_add also at m = 1024.
+             (ntt_butterfly, ec_madd, ec_double, ec_add and bucket_scan, off
+             the path, at the shapes they had on it before their fusion):
+             kernel time, plain version time and the bound, as one JSON line;
+             the fused kernels' and fermat_inv's serial chains on [timing]
+             lines, commit_dbl_add also at m = 1024, and ntt_small beside
+             the per-stage composition it replaced, at the same shape.
 5b. MSM    - one whole MSM at the ECDSA advice commit's shape (21 columns x
              2^15 points, window 10, distinct bases), in turns old, new, new,
              old: "old" accumulates the buckets by the bucket_scan composition
@@ -108,6 +126,9 @@ SOURCES = {
     "field_sub": ("csrc/field_kernels.cu", "halo2_lib_tpu/ops/pallas_field.py:822"),
     "fermat_inv": ("csrc/fermat_kernel.cu", "halo2_lib_tpu/ops/pallas_field.py:755"),
     "ntt_butterfly": ("csrc/ntt_kernels.cu", "halo2_lib_tpu/ops/pallas_field.py:708"),
+    # every stage of a small transform: the stage loop of _butterfly_kernel
+    # calls and the coset / 1/n scalings around it
+    "ntt_small": ("csrc/ntt_kernels.cu", "halo2_lib_tpu/ops/pallas_field.py:708"),
     "colntt": ("csrc/ntt_kernels.cu", "halo2_lib_tpu/ops/ntt4.py:67"),
     "ec_add": ("csrc/ec_kernels.cu", "halo2_lib_tpu/ops/pallas_field.py:304"),
     "ec_double": ("csrc/ec_kernels.cu", "halo2_lib_tpu/ops/pallas_field.py:448"),
@@ -126,14 +147,16 @@ SOURCES = {
 }
 # kernels the main path no longer launches: (work, shape) as LARGEST kept
 # them on the last path that ran them (ECDSA for bucket_scan, k=9 for the
-# single point ops)
+# single point ops and the butterfly)
 OFF_PATH_SHAPES = {
+    "ntt_butterfly": (0, ((12, 16, 1024), (16, 1024))),
     "bucket_scan": (0, ((91, 128, 16, 256), True)),
     "ec_add": (0, ((8, 16, 256),)),
     "ec_double": (0, ((8, 16, 512),)),
     "ec_madd": (0, ((8, 16, 512), (16, 512), False)),
 }
 FUSES = {
+    "ntt_small": "halo2_lib_tpu/ops/ntt.py:159-245, halo2_lib_tpu/ops/ntt.py:315-323",
     "bucket_sums_fused": "halo2_lib_tpu/ops/ec_device.py:463-591",
     "bucket_weight": "halo2_lib_tpu/ops/ec_device.py:624-674",
     "msm_combine": "halo2_lib_tpu/ops/ec_device.py:676-688",
@@ -249,6 +272,48 @@ def old_commit_double_and_add(cf, dc, scalars, Ax, Ay):
         acc = dc.select(bit, cf.ec_madd(acc, Am, False), acc)
     X, Y, Z = dc.tree_reduce(acc)  # [C, 16, 1]
     return tuple(t[..., 0].transpose(0, 1) for t in (X, Y, Z))
+
+
+def old_stage_tables(torch, tw):
+    """The per-stage twiddle rows ops/ntt.py built once per table before the
+    fusion: stage (n, s) uses w^(p s) at lane p s + j of the halves."""
+    N = 2 * tw.shape[1]
+    out, n, s = [], N, 1
+    while n > 1:
+        m = n // 2
+        out.append(tw[:, ::s][:, :m, None].expand(16, m, s).reshape(16, N // 2).contiguous())
+        n, s = m, 2 * s
+    return out
+
+
+def old_ntt_small(cf, torch, fid, x, stage_tw, pre=None, post=None):
+    """ops/ntt.py's NTT and CosetNTT before the fusion, on x [C, 16, n]: the
+    pre product (one mont_mul launch), then per stage one ntt_butterfly
+    launch over the two halves (which its wrapper copies contiguous) and the
+    interleave (a torch stack and reshape), then the post product (one
+    mont_mul launch; the inverse coset took two, 1/n and then the shift
+    powers, with the same result)."""
+    C, _, N = x.shape
+    if pre is not None:
+        x = cf.mont_mul(fid, x, pre)
+    n, s = N, 1
+    for wp in stage_tw:
+        m = n // 2
+        top, bot = cf.ntt_butterfly(fid, x[..., : N // 2], x[..., N // 2 :], wp)
+        x = torch.stack([top.reshape(C, 16, m, s), bot.reshape(C, 16, m, s)], dim=-2)
+        x = x.reshape(C, 16, N)
+        n, s = m, 2 * s
+    return x if post is None else cf.mont_mul(fid, x, post)
+
+
+def ntt_chain(spec) -> tuple[int, int]:
+    """(products a thread of ntt_small runs, its dependent chain) at spec:
+    4 elements a thread, so 2 butterflies a stage, and the diagonal
+    products of its 4 elements."""
+    (_, _, n), with_pre, post_n = spec
+    logn = n.bit_length() - 1
+    diag = int(with_pre) + int(post_n > 0)
+    return 2 * logn + 4 * diag, logn + diag
 
 
 def commit_case(gen, torch, cf, spec, P: dict):
@@ -443,16 +508,19 @@ def main() -> None:
         DeviceCurve, _scan_lanes, msm_many_device, msm_window_bits, weight_lanes,
     )
     from halo2_lib_tpu_torch.ops.limbs import DeviceField, limbs_to_ints
+    from halo2_lib_tpu_torch.ops.ntt import NTT
     from halo2_lib_tpu_torch.backend.kzg import COMMIT_SIMPLE_MAX
     from halo2_lib_tpu_torch.utils.curves import BN254_G1
     from halo2_lib_tpu_torch.utils.fields import FQ_BN254, FR_BN254
     from halo2_lib_tpu_torch.utils.pinning import pinning_of
     from halo2_lib_tpu_torch.utils.testing import (
-        ecdsa_circuit, ecdsa_inputs, ecdsa_witness, golden_circuit, slice_circuit,
+        ecdsa_circuit, ecdsa_inputs, ecdsa_witness, golden_circuit, ram_circuit, rlc_circuit,
+        rlc_prover, slice_circuit,
     )
 
     dev = torch.device("cuda")
     P = {cf.FR: FR_BN254.p, cf.FQ: FQ_BN254.p}
+    fr_df = DeviceField(FR_BN254)
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
 
@@ -477,6 +545,14 @@ def main() -> None:
             sa, sw = spec
             a = rand_limbs(gen, sa, torch, P[cf.FR])
             return cf.FR, (a, rand_limbs(gen, sa, torch, P[cf.FR]), rand_limbs(gen, sw, torch, P[cf.FR]))
+        if name == "ntt_small":
+            # the NTT's own table (inverse where a post diagonal is given)
+            (C, _, n), with_pre, post_n = spec
+            tw = NTT(fr_df, n.bit_length() - 1, dev).tw[post_n == 0]
+            x = rand_limbs(gen, (C, 16, n), torch, P[cf.FR])
+            pre = rand_limbs(gen, (16, n), torch, P[cf.FR]) if with_pre else None
+            post = rand_limbs(gen, (16, post_n), torch, P[cf.FR]) if post_n else None
+            return cf.FR, (x, tw, pre, post)
         if name == "colntt":
             (L, A, _, B), with_mid = spec
             x = rand_limbs(gen, (L, A, 16, B), torch, P[cf.FR])
@@ -563,6 +639,8 @@ def main() -> None:
             return (cf.ntt_butterfly_plain if plain else cf.ntt_butterfly)(fid, *args)
         if name == "colntt":
             return ((cf.colntt_plain if plain else cf.colntt)(fid, *args),)
+        if name == "ntt_small":
+            return ((cf.ntt_small_plain if plain else cf.ntt_small)(fid, *args),)
         if name == "ec_add":
             return (cf.ec_add_plain if plain else cf.ec_add)(*args)
         if name == "ec_double":
@@ -597,6 +675,7 @@ def main() -> None:
         "field_sub": ((3, 16, 1000), (16, 1000)),
         "fermat_inv": ((5, 16, 3),),
         "ntt_butterfly": ((3, 16, 777), (16, 777)),
+        "ntt_small": ((3, 16, 64), True, 1),
         "colntt": ((3, 128, 16, 77), True),
         "ec_add": ((2, 16, 1000),),
         "ec_double": ((2, 16, 1000),),
@@ -632,6 +711,39 @@ def main() -> None:
         if err:
             raise AssertionError(f"colntt (tw[0] = 1) at {spec} disagrees with its plain version")
         log(f"[kernels] colntt (tw[0] = 1) at {spec}: kernel == plain (max |diff| 0)")
+    # ntt_small at every n and C = 1, 3, 12, 65: the NTT's tables with the
+    # diagonal each caller passes (none, 1/n, the coset's pre row, the
+    # inverse coset's post row), then random twiddles (tw[0] not one: no
+    # product skipped) with both; 0, 1, p - 1 and R mod p among the values;
+    # held to the plain version and to the per-stage composition
+    for log_n in range(1, 12):
+        n = 1 << log_n
+        ntt_chk = NTT(fr_df, log_n, dev)
+        pre_row = rand_limbs(gen, (16, n), torch, P[cf.FR])
+        post_row = ntt_chk.inverse_post(7)
+        rand_tw = rand_limbs(gen, (16, n // 2), torch, P[cf.FR])
+        variants = {
+            "forward": (ntt_chk.tw[True], None, None),
+            "inverse (1/n)": (ntt_chk.tw[False], None, ntt_chk.n_inv_mont),
+            "forward, pre row": (ntt_chk.tw[True], pre_row, None),
+            "inverse, post row": (ntt_chk.tw[False], None, post_row),
+            "random tw, pre and post rows": (rand_tw, pre_row, post_row),
+        }
+        specials = [0, 1, P[cf.FR] - 1, (1 << 256) % P[cf.FR]][:n]
+        for C in (1, 3, 12, 65):
+            x = rand_limbs(gen, (C, 16, n), torch, P[cf.FR])
+            x[0, :, : len(specials)] = torch.tensor(
+                [[(v >> (16 * i)) & 0xFFFF for v in specials] for i in range(16)],
+                dtype=torch.int32, device="cuda")
+            for label, (tw, pre, post) in variants.items():
+                got = cf.ntt_small(cf.FR, x, tw, pre, post)
+                want = cf.ntt_small_plain(cf.FR, x, tw, pre, post)
+                old = old_ntt_small(cf, torch, cf.FR, x, old_stage_tables(torch, tw), pre, post)
+                if not (torch.equal(got, want) and torch.equal(got, old)):
+                    raise AssertionError(f"ntt_small at n = {n}, C = {C} ({label}) disagrees with "
+                                         f"its plain version or the per-stage composition")
+        log(f"[kernels] ntt_small at n = {n}, C = 1, 3, 12, 65, {len(variants)} variants: kernel "
+            f"== plain == the per-stage composition (max |diff| 0)")
     # the fused bucket accumulation: the special windows at 8, 16 and 256
     # lanes, both distinct values, ragged window counts; then against the
     # composition it replaced (bucket_scan, lane-carry scan, pick, fix)
@@ -704,6 +816,30 @@ def main() -> None:
         bad[len(bad) // 2] ^= 1
         return not verify_proof(params, vk, bytes(bad))
 
+    # every NTT call below 2^12 points (NTT.forward / NTT.inverse, which the
+    # coset transforms call too; FourStepNTT has its own): its length
+    ntt_calls = []
+
+    def counted(method):
+        def call(self, x, *args, **kwargs):
+            ntt_calls.append(self.n)
+            return method(self, x, *args, **kwargs)
+        return call
+
+    NTT.forward, NTT.inverse = counted(NTT.forward), counted(NTT.inverse)
+
+    def reset_counts() -> None:
+        torch.cuda.synchronize()
+        cf.reset_launches()
+        ntt_calls.clear()
+
+    def ntt_rule(name: str, launches: dict, calls: list) -> None:
+        """One ntt_small launch per NTT call below 2^12 points; no butterfly."""
+        if launches["ntt_small"] != len(calls) or launches["ntt_butterfly"]:
+            raise AssertionError(f"{name}: ntt_small {launches['ntt_small']} launches for "
+                                 f"{len(calls)} NTT calls, ntt_butterfly "
+                                 f"{launches['ntt_butterfly']} (want one each, and 0)")
+
     # --- 3. k=9 parity with the JAX goldens ---------------------------------------------
     t = time.time()
     gold = np.load(os.path.join(HERE, "tests", "data", "torch_goldens", "golden_k9.npz"))
@@ -718,8 +854,7 @@ def main() -> None:
         return commit_columns9(fr_df, vals, bases, window_bits)
 
     params9.commit_columns = counted_commit
-    torch.cuda.synchronize()
-    cf.reset_launches()
+    reset_counts()
     t9 = time.time()
     pk9 = keygen(params9, golden_circuit(), device=dev)
     torch.cuda.synchronize()
@@ -728,7 +863,7 @@ def main() -> None:
     proof9 = create_proof(params9, pk9, golden_circuit(), seed=0, device=dev)
     torch.cuda.synchronize()
     t_prove9 = time.time() - t9
-    launches9, largest9 = dict(cf.LAUNCHES), dict(cf.LARGEST)
+    launches9, largest9, ntt_calls9 = dict(cf.LAUNCHES), dict(cf.LARGEST), list(ntt_calls)
     params9.commit_columns = commit_columns9
     if pk9.vk.to_bytes() != bytes(gold["vk"]):
         raise AssertionError("k=9 vk bytes differ from the JAX golden")
@@ -748,12 +883,15 @@ def main() -> None:
     if not commit_calls9 or any(launches9[k] != v for k, v in want9.items()):
         raise AssertionError(f"k=9 launches {launches9}; want {want9} "
                              f"({len(commit_calls9)} commit calls)")
+    ntt_rule("k=9", launches9, ntt_calls9)
+    if not ntt_calls9:
+        raise AssertionError("k=9: no NTT call took ntt_small")
     log(f"[k=9] {len(commit_calls9)} commit calls {commit_calls9}, one commit_dbl_add launch "
-        f"each")
+        f"each; {len(ntt_calls9)} NTT calls of n = {ntt_calls9}, one ntt_small launch each; "
+        f"mont_mul {launches9['mont_mul']} launches")
 
     # one k=9 commit three ways: the largest column set the k=9 run committed
     (C9, _, m9), _ = largest9["commit_dbl_add"][1]
-    fr_df = DeviceField(FR_BN254)
     dc9 = params9.device_curve()
     vals9 = fr_df._to_mont(rand_limbs(gen, (C9, 16, m9), torch, P[cf.FR]))
     bases9 = params9.affine_lagrange_bases(dev)
@@ -777,6 +915,42 @@ def main() -> None:
         + f" (Pippenger window {wb9}); the loop and commit_dbl_add equal as Jacobian points, "
         f"all three in affine form")
 
+    # --- 3b. the multi-phase and dynamic-lookup k=9 circuits --------------------------------
+    launches_3b = {k: 0 for k in cf.KERNELS}
+    for cname in ("multiphase", "dynlookup"):
+        t = time.time()
+        gold = np.load(os.path.join(HERE, "tests", "data", "torch_goldens", f"{cname}_k9.npz"))
+        reset_counts()
+        builder = rlc_circuit() if cname == "multiphase" else ram_circuit()
+        pk3 = keygen(params9, builder, device=dev)
+        if cname == "multiphase":
+            # phase 1 is witnessed from the challenge create_proof squeezes
+            pb, phase_fns = rlc_prover(pk3, builder.break_points())
+            proof3 = create_proof(params9, pk3, pb, seed=0, phase_fns=phase_fns, device=dev)
+        else:
+            proof3 = create_proof(params9, pk3, builder, seed=0, device=dev)
+        torch.cuda.synchronize()
+        launches3, calls3 = dict(cf.LAUNCHES), list(ntt_calls)
+        for k in cf.KERNELS:
+            launches_3b[k] += launches3[k]
+        if pk3.vk.to_bytes() != bytes(gold["vk"]):
+            raise AssertionError(f"{cname} k=9 vk bytes differ from the JAX golden")
+        if proof3 != bytes(gold["proof"]):
+            raise AssertionError(f"{cname} k=9 proof bytes differ from the JAX golden")
+        if not verify_proof(params9, pk3.vk, proof3):
+            raise AssertionError(f"{cname} k=9 proof does not verify")
+        if not tampered_rejected(params9, pk3.vk, proof3):
+            raise AssertionError(f"{cname} k=9 tampered proof verifies")
+        ntt_rule(cname, launches3, calls3)
+        if not calls3:
+            raise AssertionError(f"{cname}: no NTT call took ntt_small")
+        log(f"[3b] {cname}: vk and proof byte-identical to the JAX goldens ({len(proof3)} bytes), "
+            f"verifies, tampered proof rejected; {time.time() - t:.2f}s")
+        log(f"[3b] {cname}: {len(calls3)} NTT calls below 2^12 points, n = {sorted(set(calls3))} "
+            f"(ntt_small {launches3['ntt_small']}); colntt {launches3['colntt']} launches "
+            f"(the four-step transform, n >= 2^12)")
+        log(f"[3b] {cname} launches: " + json.dumps(launches3))
+
     # --- 4. k=15 slice circuit -------------------------------------------------------------
     t = time.time()
     params = ParamsKZG.read(os.path.join(HERE, "params", "kzg_bn254_15.srs"), device=dev)
@@ -788,8 +962,7 @@ def main() -> None:
     log(f"[k=15] SRS read {t_read:.2f}s; witness {t_wit:.2f}s; columns: advice "
         f"{cp.num_advice_per_phase}, lookup {cp.num_lookup_advice_per_phase}, "
         f"fixed {cp.num_fixed}, lookup_bits {cp.lookup_bits}")
-    torch.cuda.synchronize()
-    cf.reset_launches()
+    reset_counts()
     kstages, stages = {}, {}
     t = time.time()
     pk = keygen(params, builder, device=dev, timings=kstages)
@@ -799,7 +972,7 @@ def main() -> None:
     proof = create_proof(params, pk, slice_circuit(), seed=0, device=dev, timings=stages)
     torch.cuda.synchronize()
     t_prove = time.time() - t
-    launches15, largest15 = dict(cf.LAUNCHES), dict(cf.LARGEST)
+    launches15, largest15, ntt_calls15 = dict(cf.LAUNCHES), dict(cf.LARGEST), list(ntt_calls)
     t = time.time()
     ok = verify_proof(params, pk.vk, proof)
     t_verify = time.time() - t
@@ -838,8 +1011,7 @@ def main() -> None:
     log(f"[ecdsa] keygen witness {t_ewit:.2f}s; columns: advice {ecp.num_advice_per_phase}, "
         f"lookup {ecp.num_lookup_advice_per_phase}, fixed {ecp.num_fixed}, lookup_bits "
         f"{ecp.lookup_bits}")
-    torch.cuda.synchronize()
-    cf.reset_launches()
+    reset_counts()
     ekstages, estages = {}, {}
     t = time.time()
     epk = keygen(params, ebuilder, device=dev, timings=ekstages)
@@ -853,7 +1025,7 @@ def main() -> None:
     eproof = create_proof(params, epk, pb, seed=0, device=dev, timings=estages)
     torch.cuda.synchronize()
     t_eprove = time.time() - t
-    launches_e, largest_e = dict(cf.LAUNCHES), dict(cf.LARGEST)
+    launches_e, largest_e, ntt_calls_e = dict(cf.LAUNCHES), dict(cf.LARGEST), list(ntt_calls)
     t = time.time()
     ok = verify_proof(params, epk.vk, eproof)
     t_everify = time.time() - t
@@ -876,21 +1048,24 @@ def main() -> None:
         "JAX package's")
     log("[ecdsa] launches: " + json.dumps(launches_e))
 
-    # k=9 runs the radix-2 butterfly and commits by the fused double-and-add
-    # (commit_dbl_add); k=15 runs the four-step colntt and commits by
-    # Pippenger (bucket_sums_fused, then the fused tail: bucket_weight and
-    # msm_combine, one launch each per MSM call); the literal ports of the
-    # single point ops and of the bucket scan run nowhere; every other kernel
-    # runs at both sizes
-    off_path = ("ec_add", "ec_double", "ec_madd", "bucket_scan")
+    # k=9 runs the radix-2 NTT (ntt_small) and commits by the fused
+    # double-and-add (commit_dbl_add); k=15 runs the four-step colntt and
+    # commits by Pippenger (bucket_sums_fused, then the fused tail:
+    # bucket_weight and msm_combine, one launch each per MSM call); the
+    # literal ports of the butterfly, the single point ops and the bucket
+    # scan run nowhere; every other kernel runs at both sizes
+    off_path = ("ntt_butterfly", "ec_add", "ec_double", "ec_madd", "bucket_scan")
     pippenger = ("bucket_sums_fused", "bucket_weight", "msm_combine")
     missing = [k for k in cf.KERNELS
                if k not in ("colntt", *off_path, *pippenger) and launches9[k] == 0]
-    for name, counts in (("k=15", launches15), ("ecdsa", launches_e)):
+    for name, counts, calls in (("k=15", launches15, ntt_calls15),
+                                ("ecdsa", launches_e, ntt_calls_e)):
+        # no domain below 2^12 at k=15: ntt_small only if a call took one
+        ntt_rule(name, counts, calls)
         never = (*off_path, "commit_dbl_add")
         missing += [
             f"{k} ({name})" for k in cf.KERNELS
-            if k not in ("ntt_butterfly", *never) and counts[k] == 0
+            if k not in ("ntt_small", *never) and counts[k] == 0
         ]
         per_call = {counts[k] for k in ("bucket_sums_fused", "bucket_weight", "msm_combine")}
         if any(counts[k] for k in never) or len(per_call) != 1:
@@ -932,6 +1107,13 @@ def main() -> None:
             n = numel(sa) // 16
             nbytes = 4 * (2 * numel(sa) + numel(sw)) + 128 * n
             ops = n * (MM_OPS + 3 * 16)
+        elif name == "ntt_small":
+            # x read and written once, the twiddle row and the diagonals read
+            # once; (n/2) log2 n butterflies a column and the diagonal products
+            (C, _, n), with_pre, post_n = spec
+            nbytes = 128 * C * n + 32 * n + (64 * n if with_pre else 0) + 64 * post_n
+            ops = (C * n // 2 * (n.bit_length() - 1) * (MM_OPS + 3 * 16)
+                   + C * n * MM_OPS * (int(with_pre) + int(post_n > 0)))
         elif name == "colntt":
             (L, A, _, B), with_mid = spec
             n = L * A * B
@@ -1004,6 +1186,8 @@ def main() -> None:
             return (n // lanes) * (11 if distinct else 17) + 16 * ((lanes - 1).bit_length() + 1)
         if name == "commit_dbl_add":
             return work["commit"][1]
+        if name == "ntt_small":
+            return ntt_chain(spec)[1]
         (_, CW), W, c = spec
         return 7 * W * c + 16 * W
 
@@ -1050,9 +1234,11 @@ def main() -> None:
             "route": "cuda",
             "source": f"halo2_lib_tpu_torch/{src}",
             "replaces": rep,
-            # the main path's launches: the k=9, k=15 slice and ECDSA runs
-            "launches": launches9[name] + launches15[name] + launches_e[name],
+            # the main path's launches: the k=9, the two phase-3b k=9
+            # circuits', the k=15 slice and the ECDSA runs
+            "launches": launches9[name] + launches_3b[name] + launches15[name] + launches_e[name],
             "launches_k9": launches9[name],
+            "launches_k9_phases": launches_3b[name],
             "launches_k15": launches15[name],
             "launches_ecdsa": launches_e[name],
             "max_abs_err": err,
@@ -1081,6 +1267,20 @@ def main() -> None:
                 f"30 divsteps ({max(steps)} divsteps before g = 0), each batch's 2x2 matrix "
                 f"applied to 9-limb (f, g) and (d, e); the Fermat chain ran about 330 dependent "
                 f"Montgomery products")
+        if name == "ntt_small":
+            # the per-stage composition it replaced, at the same shape
+            x, tw, pre, post = args
+            stage_tw = old_stage_tables(torch, tw)
+            if not torch.equal(old_ntt_small(cf, torch, fid, x, stage_tw, pre, post),
+                               cf.ntt_small(fid, *args)):
+                raise AssertionError(f"ntt_small at {spec} differs from the per-stage composition")
+            old_ms = time_ms(lambda: old_ntt_small(cf, torch, fid, x, stage_tw, pre, post), reps)
+            row["composition_ms"] = round(old_ms, 6)
+            runs = ntt_chain(spec)[0]
+            log(f"[timing] ntt_small at {spec}: {ms:.4f} ms against {old_ms:.4f} ms for the "
+                f"per-stage composition it replaced ({len(stage_tw)} ntt_butterfly launches and "
+                f"interleaves, {int(pre is not None) + int(post is not None)} mont_mul), equal "
+                f"outputs; a thread runs {runs} Montgomery products")
         if name == "commit_dbl_add":
             # the same columns at m = 1024, the longest the path sends it
             C = spec[0][0]

@@ -15,6 +15,8 @@ wrapper            replaces (halo2_lib_tpu/ops/pallas_field.py)    source
 ``field_sub``      ``_field_sub_kernel``                           ``field_kernels.cu``
 ``fermat_inv``     ``_fermat_kernel``                              ``fermat_kernel.cu``
 ``ntt_butterfly``  ``_butterfly_kernel``                           ``ntt_kernels.cu``
+``ntt_small``      ``_butterfly_kernel``, every stage of a transform  ``ntt_kernels.cu``
+                   and its diagonal scalings
 ``colntt``         ``ntt4.py:_colntt_kernel``                      ``ntt_kernels.cu``
 ``ec_add``         ``_ec_add_kernel``                              ``ec_kernels.cu``
 ``ec_double``      ``_ec_double_kernel``                           ``ec_kernels.cu``
@@ -79,6 +81,7 @@ KERNELS = (
     "field_sub",
     "fermat_inv",
     "ntt_butterfly",
+    "ntt_small",
     "colntt",
     "ec_add",
     "ec_double",
@@ -186,6 +189,7 @@ def _lib():
         lib.h2_fermat_inv.argtypes = [I, P, P, I64, I64, P]
         lib.h2_ntt_butterfly.argtypes = [I, P, P, P, I64, I64, P, P, I64, I64, P]
         lib.h2_colntt.argtypes = [I, P, P, P, P, I64, I64, I64, P]
+        lib.h2_ntt_small.argtypes = [I, P, P, P, P, I64, P, I64, I64, P]
         lib.h2_ec_add.argtypes = [P] * 9 + [I64, I64, P]
         lib.h2_ec_double.argtypes = [P] * 6 + [I64, I64, P]
         lib.h2_ec_madd.argtypes = [P] * 5 + [I64, I64] + [P] * 3 + [I64, I64, I, P]
@@ -197,7 +201,7 @@ def _lib():
         lib.h2_commit_dbl_add.argtypes = [P] * 3 + [I64] + [P] * 4 + [I64, I64, P]
         for fn in (
             "h2_mont_mul", "h2_field_add", "h2_field_sub", "h2_fermat_inv",
-            "h2_ntt_butterfly", "h2_colntt", "h2_ec_add", "h2_ec_double", "h2_ec_madd",
+            "h2_ntt_butterfly", "h2_ntt_small", "h2_colntt", "h2_ec_add", "h2_ec_double", "h2_ec_madd",
             "h2_bucket_scan", "h2_bucket_sums", "h2_bucket_weight", "h2_msm_combine",
             "h2_commit_dbl_add", "h2_mul_chain",
         ):
@@ -482,6 +486,26 @@ def ntt_butterfly_plain(fid: int, a, b, w):
     c = _consts(fid, a.device)
     x, y, t = (to_rows(v, shape) for v in (a, b, w))
     return from_rows(add64(x, y, c), shape), from_rows(mm64(sub64(x, y, c), t, c), shape)
+
+
+def ntt_small_plain(fid: int, x, tw, pre=None, post=None):
+    """ntt_small's function as ops/ntt.py composed it before the fusion: the
+    pre product, then per stage one butterfly over the two halves and the
+    block interleave, then the post product."""
+    C, _, N = x.shape
+    if pre is not None:
+        x = mont_mul_plain(fid, x, pre)
+    n, s = N, 1
+    while n > 1:
+        m = n // 2
+        # lane p * s + j of the halves uses w^(p * s), repeated s times
+        wp = tw[:, ::s][:, :m, None].expand(N_LIMBS, m, s).reshape(N_LIMBS, N // 2)
+        top, bot = ntt_butterfly_plain(fid, x[..., : N // 2], x[..., N // 2 :], wp)
+        x = torch.stack(
+            [top.reshape(C, N_LIMBS, m, s), bot.reshape(C, N_LIMBS, m, s)], dim=-2
+        ).reshape(C, N_LIMBS, N)
+        n, s = m, 2 * s
+    return x if post is None else mont_mul_plain(fid, x, post)
 
 
 def colntt_plain(fid: int, x, tw, mid=None):
@@ -959,6 +983,49 @@ def ntt_butterfly(fid: int, a, b, w):
     _check_rc(rc, "ntt_butterfly")
     _count("ntt_butterfly", L * B, (tuple(x.shape), tuple(wv.shape)))
     return top, bot
+
+
+# longest transform ntt_small holds in one block's shared memory
+NTT_SMALL_MAX = 1 << 11
+
+
+def ntt_small(fid: int, x, tw, pre=None, post=None):
+    """Every radix-2 Stockham DIF stage of the length-n transform of each
+    column of x int32[C, 16, n] (natural order in and out), in one launch.
+    tw: [16, n/2] Montgomery powers 1, w, ..., w^(n/2-1) of the transform's
+    root (w^-1 for an inverse). pre [16, n], when given, is multiplied into
+    x before the first stage (a forward coset's shift powers); post [16, n]
+    or [16, 1] into the result after the last (an inverse's 1/n, or an
+    inverse coset's shift^-i / n). n is a power of two in [2, 2^11]."""
+    ts = tuple(t for t in (x, tw, pre, post) if t is not None)
+    if x.dim() != 3 or x.shape[1] != N_LIMBS:
+        raise ValueError(f"expected columns [C, 16, n], got {tuple(x.shape)}")
+    C, _, n = x.shape
+    if n < 2 or n > NTT_SMALL_MAX or n & (n - 1):
+        raise ValueError(f"transform length {n} is not a power of two in [2, {NTT_SMALL_MAX}]")
+    if tuple(tw.shape) != (N_LIMBS, n // 2):
+        raise ValueError(f"twiddles {tuple(tw.shape)} != {(N_LIMBS, n // 2)}")
+    if pre is not None and tuple(pre.shape) != (N_LIMBS, n):
+        raise ValueError(f"pre diagonal {tuple(pre.shape)} != {(N_LIMBS, n)}")
+    if post is not None and tuple(post.shape) not in ((N_LIMBS, n), (N_LIMBS, 1)):
+        raise ValueError(f"post diagonal {tuple(post.shape)} is neither [16, {n}] nor [16, 1]")
+    if _on_cpu(*ts):
+        return ntt_small_plain(fid, x, tw, pre, post)
+    xc, twc = x.contiguous(), tw.contiguous()
+    prc = None if pre is None else pre.contiguous()
+    poc = None if post is None else post.contiguous()
+    out = torch.empty_like(xc)
+    if C == 0:
+        return out
+    rc = _lib().h2_ntt_small(
+        fid, _ptr(xc), _ptr(twc), None if prc is None else _ptr(prc),
+        None if poc is None else _ptr(poc), 0 if poc is None else poc.shape[1], _ptr(out), C, n,
+        _stream(out),
+    )
+    _check_rc(rc, "ntt_small")
+    _count("ntt_small", C * n * (n.bit_length() - 1),
+           (tuple(xc.shape), pre is not None, 0 if post is None else post.shape[1]))
+    return out
 
 
 # largest sub-transform the kernel holds in one block's shared memory

@@ -5,11 +5,12 @@ The port of ``halo2_lib_tpu/ops/ntt.py`` and ``ops/ntt4.py``: coefficient
 Input and output are natural order, Montgomery form, limb-major
 ``int32[..., 16, n]``; leading batch dims transform together.
 
-``NTT`` (small domains): Stockham DIF needs no bit reversal. Each of the
-log n stages pairs the two contiguous halves of the lane axis, runs one
-butterfly kernel launch (a + b, (a - b) * w) over every column of the batch,
-and interleaves the halves at block granularity s (a reshape). The stage
-loop is a Python loop of launches where JAX had ``lax.fori_loop``.
+``NTT`` (n < 2^12): Stockham DIF needs no bit reversal. Each of the log n
+stages pairs the two contiguous halves of the lane axis, (a + b, (a - b) *
+w), and interleaves the results at block granularity s. One ``ntt_small``
+launch runs every stage of every column of a call (the JAX package runs a
+``lax.fori_loop`` of butterfly kernels), with the diagonal scalings folded
+into its load and store: the inverse's 1/n, and a coset's shift powers.
 
 ``FourStepNTT`` (n >= 2^12): n = A1 * ... * Ak, ascending factors of at most
 128. Level l runs every stage of its length-Al sub-transforms in one
@@ -24,18 +25,20 @@ import torch
 from . import cuda_field as cf
 from .limbs import N_LIMBS, DeviceField, ints_to_limbs_T, to_device
 
-# Columns per dispatch of forward_cols/inverse_cols: bounds the temporaries
-# of one stage (no compile cache to share, unlike the JAX package's chunks).
+# Columns per dispatch of FourStepNTT's forward_cols/inverse_cols: bounds the
+# temporaries between its levels (no compile cache to share, unlike the JAX
+# package's chunks). NTT needs none: its one launch keeps every column in
+# shared memory.
 NTT_CHUNK = 64
 
 
-def pows_host(df: DeviceField, root: int, m: int, device=None):
-    """[16, m] Montgomery powers 1, root, ..., root^(m-1), computed with exact
-    host ints; device=None returns the numpy limbs."""
+def pows_host(df: DeviceField, root: int, m: int, device=None, scale: int = 1):
+    """[16, m] Montgomery powers scale * (1, root, ..., root^(m-1)), computed
+    with exact host ints; device=None returns the numpy limbs."""
     p = df.p_int
     r = df.R
     out = [0] * m
-    cur = 1
+    cur = scale % p
     for i in range(m):
         out[i] = cur * r % p
         cur = cur * root % p
@@ -66,20 +69,21 @@ def pows_host_ints(p: int, root: int, m: int) -> list[int]:
     return out
 
 
-def dispatch_cols(x: torch.Tensor, chunk: int, fn) -> torch.Tensor:
+def dispatch_cols(x: torch.Tensor, chunk: int | None, fn) -> torch.Tensor:
     """Apply `fn` to [chunk, ...] slices of the leading axis of x and
-    concatenate: bounds the working set of a large batched transform."""
+    concatenate: bounds the working set of a large batched transform.
+    chunk None takes the whole batch at once."""
     C = x.shape[0]
-    if C <= chunk:
+    if chunk is None or C <= chunk:
         return fn(x) if C else x
     return torch.cat([fn(x[i : i + chunk]) for i in range(0, C, chunk)], dim=0)
 
 
 class NTT:
-    """NTT/INTT of size 2^log_n over Fr, on limb-major [..., 16, n] tensors
-    on `device`."""
+    """NTT/INTT of size 2^log_n over Fr (2 <= n <= 2^11), on limb-major
+    [..., 16, n] tensors on `device`: one ntt_small launch per call."""
 
-    CHUNK = NTT_CHUNK
+    CHUNK = None  # forward_cols/inverse_cols: every column in one launch
 
     def __init__(self, df: DeviceField, log_n: int, device):
         field = df.field
@@ -97,66 +101,38 @@ class NTT:
         self._init_tables()
 
     def _init_tables(self) -> None:
-        half = max(self.n // 2, 1)
-        tw = {
-            True: pows_host(self.df, self.omega, half, self.device),
-            False: pows_host(self.df, self.omega_inv, half, self.device),
+        if not 2 <= self.n <= cf.NTT_SMALL_MAX:
+            raise ValueError(f"radix-2 NTT needs 2 <= n <= {cf.NTT_SMALL_MAX}, got {self.n}")
+        # the [16, n/2] twiddle rows of the forward and the inverse transform
+        self.tw = {
+            True: pows_host(self.df, self.omega, self.n // 2, self.device),
+            False: pows_host(self.df, self.omega_inv, self.n // 2, self.device),
         }
-        # per stage: the [16, n/2] twiddle row of each butterfly lane
-        self._stage_tw = {fwd: self._stage_tables(tw[fwd]) for fwd in (True, False)}
 
-    def _stage_tables(self, tw: torch.Tensor) -> list[torch.Tensor]:
-        """Stage (n, s), m = n/2: lane i*s + j of the halves uses w^(i*N/n),
-        the strided table repeated s times along lanes."""
-        N, half = self.n, self.n // 2
-        out = []
-        n, s = N, 1
-        while n > 1:
-            m = n // 2
-            wp = tw[:, :: N // n][:, :m]
-            if s > 1:
-                wp = wp[:, :, None].expand(N_LIMBS, m, s).reshape(N_LIMBS, half)
-            out.append(wp.contiguous())
-            n, s = m, 2 * s
-        return out
+    def _small(self, x: torch.Tensor, forward: bool, pre=None, post=None) -> torch.Tensor:
+        lead = tuple(x.shape[:-2])
+        y = cf.ntt_small(self.df.fid, x.reshape(-1, N_LIMBS, self.n), self.tw[forward], pre, post)
+        return y.reshape(lead + (N_LIMBS, self.n))
 
-    def _transform(self, x: torch.Tensor, forward: bool) -> torch.Tensor:
-        """Stockham radix-2 DIF, natural order in and out. Stage (n, s) with
-        m = n/2 pairs lanes i*s + j and (m+i)*s + j, the two contiguous
-        halves; the interleave writes top/bot back at block granularity s."""
-        N = self.n
-        if N == 1:
-            return x
-        batch = tuple(x.shape[:-2])
-        half = N // 2
-        n, s = N, 1
-        for wp in self._stage_tw[forward]:
-            m = n // 2
-            top, bot = cf.ntt_butterfly(self.df.fid, x[..., :half], x[..., half:], wp)
-            stacked = torch.stack(
-                [top.reshape(batch + (N_LIMBS, m, s)), bot.reshape(batch + (N_LIMBS, m, s))],
-                dim=-2,
-            )  # [..., 16, m, 2, s]
-            x = stacked.reshape(batch + (N_LIMBS, N))
-            n, s = m, 2 * s
-        return x
+    def forward(self, coeffs: torch.Tensor, pre: torch.Tensor | None = None) -> torch.Tensor:
+        """Evaluations at w^i (natural order) from coefficients, each first
+        multiplied by the diagonal `pre` [16, n] when it is given."""
+        return self._small(coeffs, True, pre=pre)
 
-    def _body(self, x: torch.Tensor, forward: bool) -> torch.Tensor:
-        out = self._transform(x, forward)
-        if not forward:
-            out = self.df._mont_mul(out, self.n_inv_mont)
-        return out
+    def inverse(self, evals: torch.Tensor, post: torch.Tensor | None = None) -> torch.Tensor:
+        """Coefficients from evaluations, scaled by 1/n, or by the diagonal
+        `post` when it is given: an `inverse_post` table, which holds the
+        1/n (the kernel applies one diagonal as it stores)."""
+        return self._small(evals, False, post=self.n_inv_mont if post is None else post)
 
-    def forward(self, coeffs: torch.Tensor) -> torch.Tensor:
-        """Evaluations at w^i (natural order) from coefficients."""
-        return self._body(coeffs, True)
-
-    def inverse(self, evals: torch.Tensor) -> torch.Tensor:
-        """Coefficients from evaluations, including the 1/n scaling."""
-        return self._body(evals, False)
+    def inverse_post(self, root: int) -> torch.Tensor:
+        """The [16, n] diagonal root^i for `inverse(post=...)`, with the 1/n
+        this transform applies in the same product."""
+        return pows_host(self.df, root, self.n, self.device, scale=self.n_inv)
 
     def forward_cols(self, x: torch.Tensor) -> torch.Tensor:
-        """[C, 16, n] -> [C, 16, n], CHUNK columns per dispatch."""
+        """[C, 16, n] -> [C, 16, n], CHUNK columns per dispatch (all of them
+        when CHUNK is None)."""
         return dispatch_cols(x, self.CHUNK, self.forward)
 
     def inverse_cols(self, x: torch.Tensor) -> torch.Tensor:
@@ -184,7 +160,10 @@ def _plan(n: int) -> list[int]:
 
 class FourStepNTT(NTT):
     """Four-step (Bailey) NTT, n >= MIN_FOURSTEP: the same API and the same
-    values as NTT, one colntt launch per level."""
+    values as NTT, one colntt launch per level; the diagonals of forward and
+    inverse are one mont_mul launch each."""
+
+    CHUNK = NTT_CHUNK
 
     def _init_tables(self) -> None:
         if self.n < MIN_FOURSTEP:
@@ -241,25 +220,35 @@ class FourStepNTT(NTT):
         y = self._rec(x.reshape(-1, N_LIMBS, self.n), 0, forward)
         return y.reshape(lead + (N_LIMBS, self.n)).contiguous()
 
-    def _body(self, x: torch.Tensor, forward: bool) -> torch.Tensor:
+    def forward(self, coeffs: torch.Tensor, pre: torch.Tensor | None = None) -> torch.Tensor:
+        if pre is not None:
+            coeffs = self.df._mont_mul(coeffs, pre)
+        return self._transform(coeffs, True)
+
+    def inverse(self, evals: torch.Tensor, post: torch.Tensor | None = None) -> torch.Tensor:
         # the inverse's 1/n is folded into the level-0 mid table
-        return self._transform(x, forward)
+        out = self._transform(evals, False)
+        return out if post is None else self.df._mont_mul(out, post)
+
+    def inverse_post(self, root: int) -> torch.Tensor:
+        return pows_host(self.df, root, self.n, self.device)
 
 
 def new_ntt(df: DeviceField, log_n: int, device):
     """NTT factory, as ops/ntt.py:new_ntt picks on the TPU: the four-step
-    transform from 2^12 points up, radix-2 Stockham below. (The TPU's MXU
-    digit-matmul NTT for 2^6..2^11 is not ported; radix-2 serves there.)
-    Both give the same values."""
+    transform from 2^12 points up, radix-2 Stockham (one ntt_small launch)
+    below. (The TPU's MXU digit-matmul NTT for 2^6..2^11 is not ported;
+    ntt_small serves there.) Both give the same values."""
     if log_n >= MIN_FOURSTEP.bit_length() - 1:
         return FourStepNTT(df, log_n, device)
     return NTT(df, log_n, device)
 
 
 class CosetNTT:
-    """Evaluation over the coset shift * H of the extended domain: one
-    elementwise Montgomery multiply by the shift's powers before (after) the
-    forward (inverse) NTT."""
+    """Evaluation over the coset shift * H of the extended domain: the
+    forward transform multiplies by the shift's powers first, the inverse by
+    their inverses last (inside ntt_small's one launch below 2^12 points; one
+    mont_mul launch beside the four-step transform)."""
 
     def __init__(self, df: DeviceField, log_n: int, shift: int, device):
         self.ntt = new_ntt(df, log_n, device)
@@ -267,14 +256,14 @@ class CosetNTT:
         p = df.field.p
         n = 1 << log_n
         self.shift_pows = pows_host(df, shift, n, self.ntt.device)
-        self.shift_inv_pows = pows_host(df, pow(shift, p - 2, p), n, self.ntt.device)
+        self.shift_inv_post = self.ntt.inverse_post(pow(shift, p - 2, p))
 
     def forward(self, coeffs: torch.Tensor) -> torch.Tensor:
         """Evaluate the polynomial at shift * w^i."""
-        return self.ntt.forward(self.df._mont_mul(coeffs, self.shift_pows))
+        return self.ntt.forward(coeffs, pre=self.shift_pows)
 
     def inverse(self, evals: torch.Tensor) -> torch.Tensor:
-        return self.df._mont_mul(self.ntt.inverse(evals), self.shift_inv_pows)
+        return self.ntt.inverse(evals, post=self.shift_inv_post)
 
     def forward_cols(self, x: torch.Tensor) -> torch.Tensor:
         return dispatch_cols(x, self.ntt.CHUNK, self.forward)

@@ -10,7 +10,9 @@ from __future__ import annotations
 
 import random
 
+from ..backend.challenges import mock_challenge
 from ..core.cells import Constant, Existing
+from ..core.dyn_lookup import BasicDynLookupManager
 from ..ecc.ec import EccChip
 from ..ecc.ecdsa import ecdsa_sign, ecdsa_verify_no_pubkey_check
 from ..ecc.fp import FpChip
@@ -59,6 +61,68 @@ def instance_circuit(xv: int = 1234567, yv: int = 89, k: int = GOLDEN_K):
         builder.config_params.num_advice_per_phase[0], 1
     )
     return builder, [[xv, xv * yv % FR_BN254.p]]
+
+
+RLC_VALS = [3, 1415926, 535897, 93238462]
+
+
+def rlc_phase1(builder: BaseCircuitBuilder, gate: GateChip, vals, challenge: int):
+    """Phase-1 witnesses of the RLC circuit: pin the challenge
+    (`constrain_challenge`), then fold vals by Horner. Returns the fold."""
+    ctx1 = builder.main(1)
+    ch = ctx1.load_witness(challenge)
+    builder.constrain_challenge(ch, 0)
+    acc = vals[0]
+    for v in vals[1:]:
+        acc = gate.mul_add(ctx1, acc, ch, v)
+    return acc
+
+
+def rlc_circuit(k: int = GOLDEN_K) -> BaseCircuitBuilder:
+    """A two-phase circuit: phase 0 loads RLC_VALS, phase 1 folds them with
+    the phase-0 challenge (here the mock stand-in, as keygen sees it)."""
+    builder = BaseCircuitBuilder.from_stage(CircuitBuilderStage.MOCK).use_k(k)
+    gate = GateChip(FR_BN254)
+    ctx0 = builder.main(0)
+    vs = [ctx0.load_witness(v) for v in RLC_VALS]
+    rlc_phase1(builder, gate, vs, mock_challenge(0))
+    builder.calculate_params(minimum_rows=9)
+    return builder
+
+
+def rlc_prover(pk, break_points):
+    """(prover builder, phase_fns) for create_proof of the RLC circuit: the
+    phase-0 witnesses, and the closure that adds phase 1 from the challenge
+    create_proof squeezes after the phase-0 commitments."""
+    pb = BaseCircuitBuilder.prover(pk.config_params, break_points)
+    gate = GateChip(FR_BN254)
+    ctx0 = pb.main(0)
+    vs = [ctx0.load_witness(v) for v in RLC_VALS]
+
+    def phase1(b, chals):
+        rlc_phase1(b, gate, vs, chals[0])
+
+    return pb, {1: phase1}
+
+
+def ram_circuit(k: int = GOLDEN_K) -> BaseCircuitBuilder:
+    """Memory reads through a dynamic lookup: a table of 64 (index, value)
+    rows and 32 reads of it (key_col=2), at >= 2 advice columns."""
+    rng = random.Random(81)
+    memory = [rng.randrange(1 << 64) for _ in range(64)]
+    reads = [rng.randrange(64) for _ in range(32)]
+    builder = BaseCircuitBuilder.from_stage(CircuitBuilderStage.MOCK).use_k(k)
+    mgr = BasicDynLookupManager(key_col=2)
+    builder.dyn_lookup_manager = mgr
+    ctx = builder.main(0)
+    for idx, val in enumerate(memory):
+        mgr.sets[0].add_table_row((ctx.load_witness(idx), ctx.load_witness(val)))
+    for r in reads:
+        mgr.sets[0].add_lookup((ctx.load_witness(r), ctx.load_witness(memory[r])))
+    builder.calculate_params(minimum_rows=9)
+    p = builder.config_params
+    p.num_advice_per_phase[0] = max(p.num_advice_per_phase[0], 2)
+    return builder
 
 
 def slice_circuit(k: int = 15, iters: int = 7000, seed: int = 0) -> BaseCircuitBuilder:

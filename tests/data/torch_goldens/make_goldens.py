@@ -23,6 +23,12 @@ itself,
   (``commit_simple``: ``kzg.py``'s 254-step double-and-add scan and
   ``tree_reduce``, before ``pack_out``) on the columns of
   ``commit_simple_case``;
+* ``multiphase_k9.npz`` and ``dynlookup_k9.npz`` (with ``--phases``, which
+  freezes these two and nothing else): the same keys as ``golden_k9.npz``
+  for the two k=9 circuits that exercise ``create_proof``'s ``phase_fns``
+  (the RLC circuit of ``tests/test_multiphase.py``, its phase-1 witnesses
+  made from the squeezed challenge) and the dynamic-lookup columns (the RAM
+  circuit of ``tests/test_dyn_lookup.py`` at k=9), committed k=9 SRS, seed 0;
 * ``slice_k15.json`` (with ``--k15``): the SHA-256 of the JAX proof of the
   k=15 slice circuit at seed 0, which ``chip_smoke.py`` compares with;
 * ``ecdsa_k15.json`` (with ``--ecdsa``): the SHA-256 of the vk and of the
@@ -33,6 +39,7 @@ itself,
 Run from the repository root:
 
     JAX_PLATFORMS=cpu python tests/data/torch_goldens/make_goldens.py [--k15] [--ecdsa] [--ops-only]
+    JAX_PLATFORMS=cpu python tests/data/torch_goldens/make_goldens.py --phases
 
 The circuits are built here with the JAX eDSL, step for step as the port's
 ``utils/testing.py`` builds them with its own copy (the ECDSA circuit with
@@ -57,10 +64,12 @@ ROOT = os.path.dirname(os.path.dirname(os.path.dirname(HERE)))
 sys.path.insert(0, ROOT)
 
 from halo2_lib_tpu.backend.keygen import keygen  # noqa: E402
+from halo2_lib_tpu.backend.challenges import mock_challenge  # noqa: E402
 from halo2_lib_tpu.backend.kzg import ParamsKZG  # noqa: E402
 from halo2_lib_tpu.backend.prover import create_proof  # noqa: E402
 from halo2_lib_tpu.backend.verifier import verify_proof  # noqa: E402
 from halo2_lib_tpu.core.cells import Constant, Existing  # noqa: E402
+from halo2_lib_tpu.core.dyn_lookup import BasicDynLookupManager  # noqa: E402
 from halo2_lib_tpu.gates.circuit import BaseCircuitBuilder, CircuitBuilderStage  # noqa: E402
 from halo2_lib_tpu.gates.flex_gate import GateChip  # noqa: E402
 from halo2_lib_tpu.utils.fields import FR_BN254  # noqa: E402
@@ -116,6 +125,68 @@ def slice_circuit(k: int = 15, iters: int = 7000, seed: int = 0):
         rc.range_check(ctx, a, 4 * lookup_bits)
         z = gate.mul_add(ctx, Existing(z), Existing(a), Constant(3))
     builder.calculate_params(minimum_rows=9)
+    return builder
+
+
+RLC_VALS = [3, 1415926, 535897, 93238462]
+
+
+def rlc_phase1(builder, gate, vals, challenge: int):
+    """Phase-1 witnesses of the RLC circuit: pin the challenge, then fold
+    vals by Horner (tests/test_multiphase.py:_rlc_phase1)."""
+    ctx1 = builder.main(1)
+    ch = ctx1.load_witness(challenge)
+    builder.constrain_challenge(ch, 0)
+    acc = vals[0]
+    for v in vals[1:]:
+        acc = gate.mul_add(ctx1, acc, ch, v)
+    return acc
+
+
+def rlc_circuit(k: int = 9):
+    """The two-phase RLC circuit on a MOCK builder, its phase 1 made with the
+    mock challenge (tests/test_multiphase.py:_build and _keygen)."""
+    builder = BaseCircuitBuilder.from_stage(CircuitBuilderStage.MOCK).use_k(k)
+    gate = GateChip(FR_BN254)
+    ctx0 = builder.main(0)
+    vs = [ctx0.load_witness(v) for v in RLC_VALS]
+    rlc_phase1(builder, gate, vs, mock_challenge(0))
+    builder.calculate_params(minimum_rows=9)
+    return builder
+
+
+def rlc_prover(pk, break_points):
+    """The prover builder with the phase-0 witnesses, and the phase_fns that
+    add phase 1 from the challenge create_proof squeezes."""
+    pb = BaseCircuitBuilder.prover(pk.config_params, break_points)
+    gate = GateChip(FR_BN254)
+    ctx0 = pb.main(0)
+    vs = [ctx0.load_witness(v) for v in RLC_VALS]
+
+    def phase1(b, chals):
+        rlc_phase1(b, gate, vs, chals[0])
+
+    return pb, {1: phase1}
+
+
+def ram_circuit(k: int = 9):
+    """The RAM circuit of tests/test_dyn_lookup.py:build_ram_circuit: 64
+    (index, value) table rows and 32 reads through a dynamic lookup with
+    key_col=2, at >= 2 advice columns (test_ram_real_prover_roundtrip)."""
+    rng = random.Random(81)
+    memory = [rng.randrange(1 << 64) for _ in range(64)]
+    reads = [rng.randrange(64) for _ in range(32)]
+    builder = BaseCircuitBuilder.from_stage(CircuitBuilderStage.MOCK).use_k(k)
+    mgr = BasicDynLookupManager(key_col=2)
+    builder.dyn_lookup_manager = mgr
+    ctx = builder.main(0)
+    for idx, val in enumerate(memory):
+        mgr.sets[0].add_table_row((ctx.load_witness(idx), ctx.load_witness(val)))
+    for r in reads:
+        mgr.sets[0].add_lookup((ctx.load_witness(r), ctx.load_witness(memory[r])))
+    builder.calculate_params(minimum_rows=9)
+    p = builder.config_params
+    p.num_advice_per_phase[0] = max(p.num_advice_per_phase[0], 2)
     return builder
 
 
@@ -469,10 +540,17 @@ def limbs16(cols, n: int) -> np.ndarray:
     return out
 
 
-def freeze(name: str, builder, instances, params) -> None:
+def freeze(name: str, builder, instances, params, prover=None) -> None:
+    """Keygen on `builder`, then the seed-0 proof: of `builder` itself, or,
+    with `prover(pk, break_points) -> (prover builder, phase_fns)`, of the
+    builder and phase closures it returns."""
     t = time.time()
     pk = keygen(params, builder)
-    proof = create_proof(params, pk, builder, instances=instances, seed=0)
+    if prover is None:
+        proof = create_proof(params, pk, builder, instances=instances, seed=0)
+    else:
+        pb, phase_fns = prover(pk, builder.break_points())
+        proof = create_proof(params, pk, pb, instances=instances, seed=0, phase_fns=phase_fns)
     assert verify_proof(params, pk.vk, proof, instances)
     n = 1 << pk.vk.k
     d = {
@@ -496,6 +574,11 @@ def freeze(name: str, builder, instances, params) -> None:
 
 
 def main() -> None:
+    if "--phases" in sys.argv:
+        params9 = ParamsKZG.read(os.path.join(ROOT, "params", "kzg_bn254_9.srs"))
+        freeze("multiphase_k9", rlc_circuit(), None, params9, rlc_prover)
+        freeze("dynlookup_k9", ram_circuit(), None, params9)
+        return
     if "--ecdsa" in sys.argv:
         freeze_ecdsa()
     freeze_field()

@@ -94,6 +94,52 @@ def test_four_step_ntt_on_the_card_matches_cpu(dev):
     assert cf.LAUNCHES["colntt"] == 4 and cf.LAUNCHES["ntt_butterfly"] == 0
 
 
+@pytest.mark.parametrize("log_n", range(1, 12))
+def test_ntt_small(dev, log_n):
+    """ntt_small against its plain version at ragged column counts: the
+    NTT's tables with each diagonal its callers pass (none, 1/n, the coset's
+    pre row, the inverse coset's post row), and random twiddles (no product
+    skipped) with both diagonals."""
+    from halo2_lib_tpu_torch.ops.ntt import NTT
+
+    n = 1 << log_n
+    gen = torch.Generator().manual_seed(300 + log_n)
+    ntt = NTT(DeviceField(FR_BN254), log_n, dev)
+    pre = _rand((16, n), FR_BN254.p, gen, dev)
+    post = ntt.inverse_post(7)
+    cases = (
+        (ntt.tw[True], None, None),
+        (ntt.tw[False], None, ntt.n_inv_mont),
+        (ntt.tw[True], pre, None),
+        (ntt.tw[False], None, post),
+        (_rand((16, n // 2), FR_BN254.p, gen, dev), pre, post),
+    )
+    for C in (1, 3, 65):
+        x = _rand((C, 16, n), FR_BN254.p, gen, dev)
+        for tw, pr, po in cases:
+            got = cf.ntt_small(cf.FR, x, tw, pr, po)
+            assert torch.equal(got, cf.ntt_small_plain(cf.FR, x, tw, pr, po))
+
+
+def test_small_ntt_on_the_card_matches_cpu(dev):
+    """The k=9 domains through NTT (2^9) and CosetNTT (2^11) on the card:
+    the CPU's values, one ntt_small launch per call, its scalings inside
+    (no mont_mul launch) and no butterfly."""
+    from halo2_lib_tpu_torch.ops.ntt import NTT, CosetNTT
+
+    df = DeviceField(FR_BN254)
+    gen = torch.Generator().manual_seed(11)
+    for log_n, make in ((9, lambda d: NTT(df, 9, d)), (11, lambda d: CosetNTT(df, 11, 7, d))):
+        cpu, card = make("cpu"), make(dev)
+        x = _rand((12, 16, 1 << log_n), FR_BN254.p, gen, "cpu")
+        cf.reset_launches()
+        y = card.forward(x.to(dev))
+        assert torch.equal(y.cpu(), cpu.forward(x))
+        assert torch.equal(card.inverse(y).cpu(), x)
+        assert cf.LAUNCHES["ntt_small"] == 2
+        assert cf.LAUNCHES["ntt_butterfly"] == 0 and cf.LAUNCHES["mont_mul"] == 0
+
+
 def test_ec_kernels(dev):
     rng = random.Random(4)
     dc = DeviceCurve(DeviceField(BN254_G1.base), BN254_G1)
