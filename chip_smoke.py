@@ -73,10 +73,36 @@ printing its own lines; any failure raises and exits non-zero:
              2^12 points in every phase (none at k=15 and ECDSA, whose
              domains are 2^15 and 2^17). The literal ports ntt_butterfly,
              ec_madd, ec_double, ec_add and bucket_scan run on no path: 0
-             launches in all of them.
+             launches in all of them. g1_batch_mul runs only where an SRS is
+             made (phase 6).
+6. srs +   - (runs before phase 5, whose table carries its launches) SRS
+   pairing   creation on the card and the BN254 pairing circuit at
+             configs/bn254/pairing_circuit.config (k=19, lookup_bits 18, 90-bit
+             limbs): setup(12) and setup(15) byte for byte the committed
+             params/ files, a Processed round trip at k=12, g1_batch_mul
+             against its plain version at 300 lanes (scalars 0, 1, r - 1);
+             then, with the counts reset, gen_srs(19) makes the k=19 SRS on
+             the card (one g1_batch_mul launch for both bases) into the
+             git-ignored halo2_lib_tpu_torch/_build/params/, and the pairing
+             circuit is keygen'd (MOCK builder), witnessed on the pinned
+             PROVER builder and proved at seed 0, verified, a tampered proof
+             rejected; every stage's seconds printed, the launches as
+             `launches_pairing` (no ntt_small, no commit_dbl_add, colntt and
+             every Pippenger kernel launched). Then the k=19 SRS: its
+             g[:2^15] is the committed k=15 file's, 64 sampled Lagrange
+             points are L_i(tau) G on the host, the written file reads back
+             to the same bases; one MSM of 3 columns x 2^19 points on each
+             basis equals p(tau) G (monomial) and sum_i v_i L_i(tau) G
+             (Lagrange) on the host; the four-step NTT at 2^19 and 2^21
+             (forward, inverse, coset both ways) equals the JAX NTT's digests
+             (ntt_digests_large.json). The SRS, columns, vk and proof are
+             held to each digest pairing_k19.json holds (the JAX run writes
+             them stage by stage), and printed.
 5. timing  - every kernel again, at the largest shapes the main path gave it
-             (ntt_butterfly, ec_madd, ec_double, ec_add and bucket_scan, off
-             the path, at the shapes they had on it before their fusion):
+             (the ECDSA, k=15 and k=9 paths' shapes; g1_batch_mul at phase
+             6's [16, 2^20] with setup(19)'s scalars, its plain version run
+             once; ntt_butterfly, ec_madd, ec_double, ec_add and bucket_scan,
+             off the path, at the shapes they had on it before their fusion):
              kernel time, plain version time and the bound, as one JSON line;
              the fused kernels' and fermat_inv's serial chains on [timing]
              lines, commit_dbl_add also at m = 1024, and ntt_small beside
@@ -144,6 +170,8 @@ SOURCES = {
     # the small-column commit: the lax.scan of _ec_double_kernel and
     # _ec_madd_kernel steps and the _ec_add_kernel lane tree
     "commit_dbl_add": ("csrc/ec_kernels.cu", "halo2_lib_tpu/ops/pallas_field.py:430"),
+    # the SRS setup's scan of _ec_double_kernel and _ec_add_kernel steps
+    "g1_batch_mul": ("csrc/ec_kernels.cu", "halo2_lib_tpu/ops/pallas_field.py:448"),
 }
 # kernels the main path no longer launches: (work, shape) as LARGEST kept
 # them on the last path that ran them (ECDSA for bucket_scan, k=9 for the
@@ -161,6 +189,7 @@ FUSES = {
     "bucket_weight": "halo2_lib_tpu/ops/ec_device.py:624-674",
     "msm_combine": "halo2_lib_tpu/ops/ec_device.py:676-688",
     "commit_dbl_add": "halo2_lib_tpu/backend/kzg.py:499-519, halo2_lib_tpu/ops/ec_device.py:308",
+    "g1_batch_mul": "halo2_lib_tpu/backend/kzg.py:635-661",
 }
 # 32-bit operations of one batch of the inversion (csrc/fermat_kernel.cu):
 # the 2x2 matrix on (d, e), 6 multiply-adds a limb with the multiple of p,
@@ -336,16 +365,19 @@ def commit_case(gen, torch, cf, spec, P: dict):
     return scal, Ax, Ay
 
 
+def chain_work(scalars) -> list[int]:
+    """Montgomery products of each lane's double-and-add chain (the chain
+    launch of commit_dbl_add and g1_batch_mul): a doubling (7) at and below
+    the lane's top bit and a mixed add (11) at each set bit but the first
+    (which meets the identity)."""
+    return [7 * x.bit_length() + 11 * max(bin(x).count("1") - 1, 0) for x in scalars]
+
+
 def commit_work(scalars, m: int):
     """(Montgomery products commit_dbl_add runs on these scalars, the longest
-    thread's chain of them): per lane, a doubling (7) at and below its top
-    bit and a mixed add (11) at each set bit but the first (which meets the
-    identity); then m - 1 complete adds (16) per column, log2(m) levels."""
-    tops, sets = [], []
-    for x in scalars:
-        tops.append(x.bit_length())
-        sets.append(bin(x).count("1"))
-    lane = [7 * t + 11 * max(s - 1, 0) for t, s in zip(tops, sets)]
+    thread's chain of them): each lane's chain_work, then m - 1 complete
+    adds (16) per column, log2(m) levels."""
+    lane = chain_work(scalars)
     C = len(scalars) // m
     levels = (m - 1).bit_length()
     return sum(lane) + 16 * C * (m - 1), max(lane) + 16 * levels
@@ -488,7 +520,22 @@ def bucket_case(gen, torch, cf, spec, p: int, special: bool):
     return (cf.pack_bases(Ax, Ay), order.to(torch.int32), d_sorted, lanes, nb, distinct), (Ax, Ay)
 
 
+def ntt_input_limbs(log_n: int, np, cols: int = 2):
+    """make_goldens.ntt_inputs(log_n, cols) as canonical 16-bit limbs
+    int32[cols, 16, n], vectorized: each value is four 63-bit words, word i
+    at bit 63 i (below 2^252 < r, so no reduction)."""
+    n = 1 << log_n
+    rng = np.random.default_rng(1000 + log_n)
+    words = rng.integers(0, 1 << 63, size=(cols, n, 4), dtype=np.int64)
+    bits = np.unpackbits(words.astype("<u8").view(np.uint8).reshape(cols, n, 4, 8), axis=-1,
+                         bitorder="little")[..., :63].reshape(cols, n, 252)
+    bits = np.concatenate([bits, np.zeros((cols, n, 4), np.uint8)], axis=-1)
+    limbs = np.packbits(bits, axis=-1, bitorder="little").view("<u2")  # [cols, n, 16]
+    return np.ascontiguousarray(limbs.transpose(0, 2, 1)).astype(np.int32)
+
+
 def main() -> None:
+    t_start = time.time()
     import torch
 
     if not torch.cuda.is_available():
@@ -499,7 +546,8 @@ def main() -> None:
 
     from halo2_lib_tpu_torch.backend.keygen import keygen
     from halo2_lib_tpu_torch.backend.kzg import (
-        ParamsKZG, _pack_affine, commit_double_and_add, window_digits,
+        ParamsKZG, _affine_mont, _lagrange_scalars, _pack_affine, _tau_powers,
+        commit_double_and_add, gen_srs, host_points, window_digits,
     )
     from halo2_lib_tpu_torch.backend.prover import create_proof
     from halo2_lib_tpu_torch.backend.verifier import verify_proof
@@ -507,15 +555,16 @@ def main() -> None:
     from halo2_lib_tpu_torch.ops.ec_device import (
         DeviceCurve, _scan_lanes, msm_many_device, msm_window_bits, weight_lanes,
     )
-    from halo2_lib_tpu_torch.ops.limbs import DeviceField, limbs_to_ints
-    from halo2_lib_tpu_torch.ops.ntt import NTT
+    from halo2_lib_tpu_torch.ops.limbs import DeviceField, ints_to_limbs_T, limbs_to_ints
+    from halo2_lib_tpu_torch.ops.ntt import NTT, CosetNTT, new_ntt
+    from halo2_lib_tpu_torch.utils.chacha import reference_srs_tau
     from halo2_lib_tpu_torch.backend.kzg import COMMIT_SIMPLE_MAX
     from halo2_lib_tpu_torch.utils.curves import BN254_G1
     from halo2_lib_tpu_torch.utils.fields import FQ_BN254, FR_BN254
     from halo2_lib_tpu_torch.utils.pinning import pinning_of
     from halo2_lib_tpu_torch.utils.testing import (
-        ecdsa_circuit, ecdsa_inputs, ecdsa_witness, golden_circuit, ram_circuit, rlc_circuit,
-        rlc_prover, slice_circuit,
+        ecdsa_circuit, ecdsa_inputs, ecdsa_witness, golden_circuit, pairing_circuit,
+        pairing_inputs, pairing_witness, ram_circuit, rlc_circuit, rlc_prover, slice_circuit,
     )
 
     dev = torch.device("cuda")
@@ -541,6 +590,10 @@ def main() -> None:
             return cf.FR, (rand_limbs(gen, sa, torch, P[cf.FR]),)
         if name == "commit_dbl_add":
             return cf.FQ, commit_case(gen, torch, cf, spec, P)
+        if name == "g1_batch_mul":
+            # the scalars of phase 6's setup(19): tau^i, then L_i(tau)
+            sc = torch.from_numpy(ints_to_limbs_T(taus19 + lag19).astype(np.int32)).to(dev)
+            return cf.FQ, (sc, *dcq.pack_points_affine([BN254_G1.g], dev))
         if name == "ntt_butterfly":
             sa, sw = spec
             a = rand_limbs(gen, sa, torch, P[cf.FR])
@@ -649,7 +702,8 @@ def main() -> None:
             return (cf.ec_madd_plain if plain else cf.ec_madd)(*args)
         if name == "bucket_scan":
             return ((cf.bucket_scan_plain if plain else cf.bucket_scan)(*args),)
-        if name in ("bucket_sums_fused", "bucket_weight", "msm_combine", "commit_dbl_add"):
+        if name in ("bucket_sums_fused", "bucket_weight", "msm_combine", "commit_dbl_add",
+                    "g1_batch_mul"):
             return getattr(cf, f"{name}_plain" if plain else name)(*args)
         raise KeyError(name)
 
@@ -1057,15 +1111,16 @@ def main() -> None:
     off_path = ("ntt_butterfly", "ec_add", "ec_double", "ec_madd", "bucket_scan")
     pippenger = ("bucket_sums_fused", "bucket_weight", "msm_combine")
     missing = [k for k in cf.KERNELS
-               if k not in ("colntt", *off_path, *pippenger) and launches9[k] == 0]
+               if k not in ("colntt", "g1_batch_mul", *off_path, *pippenger) and launches9[k] == 0]
     for name, counts, calls in (("k=15", launches15, ntt_calls15),
                                 ("ecdsa", launches_e, ntt_calls_e)):
         # no domain below 2^12 at k=15: ntt_small only if a call took one
         ntt_rule(name, counts, calls)
         never = (*off_path, "commit_dbl_add")
+        # the SRS is read from params/ here: no g1_batch_mul (phase 6 makes one)
         missing += [
             f"{k} ({name})" for k in cf.KERNELS
-            if k not in ("ntt_small", *never) and counts[k] == 0
+            if k not in ("ntt_small", "g1_batch_mul", *never) and counts[k] == 0
         ]
         per_call = {counts[k] for k in ("bucket_sums_fused", "bucket_weight", "msm_combine")}
         if any(counts[k] for k in never) or len(per_call) != 1:
@@ -1076,6 +1131,196 @@ def main() -> None:
             )
     if missing:
         raise AssertionError(f"kernels not launched on the main path: {missing}")
+
+    # --- 6. srs + pairing: SRS creation on the card, the pairing circuit at k=19 ----------------
+    # (a) setup against the committed files, the Processed format, and
+    # g1_batch_mul against its plain version at a few hundred lanes
+    t6 = time.time()
+    r_fr = FR_BN254.p
+    for k in (12, 15):
+        with open(os.path.join(HERE, "params", f"kzg_bn254_{k}.srs"), "rb") as f:
+            want = f.read()
+        st = {}
+        t = time.time()
+        made = ParamsKZG.setup(k, device=dev, timings=st)
+        if made.to_halo2_bytes() != want:
+            raise AssertionError(f"setup({k}) on the card differs from params/kzg_bn254_{k}.srs")
+        log(f"[srs] setup({k}) on the card == params/kzg_bn254_{k}.srs byte for byte; "
+            f"{time.time() - t:.3f}s, stages (s) " + stage_line(st))
+        if k == 12:
+            proc = made.to_halo2_bytes(raw=False)
+            back = ParamsKZG.from_halo2_bytes(proc, device=dev)
+            if back.to_halo2_bytes() != want or back.to_halo2_bytes(raw=False) != proc:
+                raise AssertionError("setup(12): the Processed round trip changed the SRS")
+            log(f"[srs] setup(12): Processed bytes ({len(proc)}) read back to the same SRS")
+    scal = rand_limbs(gen, (16, 300), torch, r_fr)
+    for lane, v in enumerate((0, 1, r_fr - 1)):
+        scal[:, lane] = torch.tensor([(v >> (16 * i)) & 0xFFFF for i in range(16)],
+                                     dtype=torch.int32, device=dev)
+    dcq = DeviceCurve(DeviceField(BN254_G1.base), BN254_G1)
+    Gx, Gy = dcq.pack_points_affine([BN254_G1.g], dev)
+    got = cf.g1_batch_mul(scal, Gx, Gy)
+    if max_err(got, cf.g1_batch_mul_plain(scal, Gx, Gy)):
+        raise AssertionError("g1_batch_mul at 300 lanes disagrees with its plain version")
+    aff = _affine_mont(dcq.df, *got)
+    some = list(zip(dcq.df.unpack(aff[0][:, :8]), dcq.df.unpack(aff[1][:, :8])))
+    if some != [BN254_G1.mul(BN254_G1.g, v) or (0, 0)
+                for v in limbs_to_ints(scal[:, :8].T.cpu().numpy())]:
+        raise AssertionError("g1_batch_mul's affine points differ from the host curve's")
+    log("[srs] g1_batch_mul at [16, 300] (scalars 0, 1, r - 1 among them) == plain (max |diff| "
+        "0); its first 8 lanes in affine form == s G on the host")
+
+    # (b, d) the main path at k=19: gen_srs makes the SRS on the card (into a
+    # git-ignored directory, never params/), then the pairing circuit at
+    # configs/bn254/pairing_circuit.config: keygen on the MOCK builder, the
+    # witness on the pinned PROVER builder, create_proof at seed 0
+    srs_dir = os.path.join(HERE, "halo2_lib_tpu_torch", "_build", "params")
+    srs19 = os.path.join(srs_dir, "kzg_bn254_19.srs")
+    if os.path.exists(srs19):
+        os.remove(srs19)
+    os.environ["PARAMS_DIR"] = srs_dir
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    srs_st, pkst, ppst = {}, {}, {}
+    t = time.time()
+    params19 = gen_srs(19, device=dev, timings=srs_st)
+    t_srs = time.time() - t
+    t = time.time()
+    pbuilder = pairing_circuit()
+    t_pwit = time.time() - t
+    pcp = pbuilder.config_params
+    t = time.time()
+    ppk = keygen(params19, pbuilder, device=dev, timings=pkst)
+    torch.cuda.synchronize()
+    t_pkeygen = time.time() - t
+    t = time.time()
+    ppb = pairing_witness(pinning_of(pbuilder).prover_builder(), pairing_inputs())
+    t_ppwit = time.time() - t
+    t = time.time()
+    pproof = create_proof(params19, ppk, ppb, seed=0, device=dev, timings=ppst)
+    torch.cuda.synchronize()
+    t_pprove = time.time() - t
+    launches_p, largest_p, ntt_calls_p = dict(cf.LAUNCHES), dict(cf.LARGEST), list(ntt_calls)
+    t = time.time()
+    ok = verify_proof(params19, ppk.vk, pproof)
+    t_pverify = time.time() - t
+    log(f"[pairing] columns: advice {pcp.num_advice_per_phase}, lookup "
+        f"{pcp.num_lookup_advice_per_phase}, fixed {pcp.num_fixed}, k {pcp.k}, lookup_bits "
+        f"{pcp.lookup_bits}, 90-bit limbs x 3")
+    log(f"[pairing] gen_srs(19) (setup on the card and write) {t_srs:.3f}s, stages (s) "
+        + stage_line(srs_st))
+    log(f"[pairing] keygen witness (MOCK builder) {t_pwit:.3f}s, keygen {t_pkeygen:.3f}s, prover "
+        f"witness (pinned builder) {t_ppwit:.3f}s, create_proof {t_pprove:.3f}s, verify_proof "
+        f"{t_pverify:.3f}s; proof {len(pproof)} bytes")
+    log(f"[pairing] peak device memory through create_proof: "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    log("[pairing] keygen stages (s): " + stage_line(pkst))
+    log("[pairing] create_proof stages (s): " + stage_line(ppst))
+    if not ok:
+        raise AssertionError("pairing proof does not verify")
+    if not tampered_rejected(params19, ppk.vk, pproof):
+        raise AssertionError("pairing tampered proof verifies")
+    pvk = hashlib.sha256(ppk.vk.to_bytes()).hexdigest()
+    pdigest = hashlib.sha256(pproof).hexdigest()
+    with open(srs19, "rb") as f:
+        srs19_bytes = f.read()
+    psrs = hashlib.sha256(srs19_bytes).hexdigest()
+    # pairing_k19.json holds what the JAX run reached: the SRS's digest, then
+    # the columns and vk's, then the proof's; each present one must match
+    port = {"srs_sha256": psrs, "vk_sha256": pvk, "proof_sha256": pdigest,
+            "num_advice_per_phase": list(pcp.num_advice_per_phase),
+            "num_lookup_advice_per_phase": list(pcp.num_lookup_advice_per_phase),
+            "num_fixed": pcp.num_fixed}
+    pref_path = os.path.join(HERE, "tests", "data", "torch_goldens", "pairing_k19.json")
+    pref = {}
+    if os.path.exists(pref_path):
+        with open(pref_path) as f:
+            pref = json.load(f)
+    held = [key for key in port if key in pref]
+    if any(port[key] != pref[key] for key in held):
+        raise AssertionError(f"pairing {port} != JAX {pref}")
+    log(f"[pairing] equal to the JAX package's (pairing_k19.json): {held or 'nothing frozen'}; "
+        f"the port's digests: srs sha256 {psrs}, vk sha256 {pvk}, proof sha256 {pdigest}")
+    log("[pairing] proof verifies, tampered proof rejected")
+    log("[pairing] launches: " + json.dumps(launches_p))
+    # every domain is 2^19 or 2^21: the four-step NTT, no ntt_small; every
+    # commit has 2^19 points: Pippenger, no commit_dbl_add; one g1_batch_mul
+    ntt_rule("pairing", launches_p, ntt_calls_p)
+    never_p = ("ntt_small", "commit_dbl_add", *off_path)
+    missing_p = [k for k in cf.KERNELS if k not in never_p and launches_p[k] == 0]
+    if (any(launches_p[k] for k in never_p) or launches_p["g1_batch_mul"] != 1
+            or launches_p["colntt"] == 0 or missing_p):
+        raise AssertionError(f"pairing launches {launches_p}: want 0 of {never_p}, one "
+                             f"g1_batch_mul, colntt > 0; not launched: {missing_p}")
+    del pbuilder, ppb
+
+    # (b) the k=19 SRS: its first 2^15 monomial points are the committed k=15
+    # file's, 64 sampled Lagrange points are L_i(tau) G on the host, and the
+    # written file reads back to the same bases
+    with open(os.path.join(HERE, "params", "kzg_bn254_15.srs"), "rb") as f:
+        srs15_bytes = f.read()
+    if srs19_bytes[4 : 4 + 64 * (1 << 15)] != srs15_bytes[4 : 4 + 64 * (1 << 15)]:
+        raise AssertionError("setup(19): g[:2^15] differs from params/kzg_bn254_15.srs")
+    tau = reference_srs_tau()
+    t = time.time()
+    lag19 = _lagrange_scalars(tau, 19)
+    t_lag = time.time() - t
+    idx = sorted(random.Random(19).sample(range(params19.n), 64))
+    q_fq, rinv = FQ_BN254.p, pow(1 << 256, -1, FQ_BN254.p)
+    got_lag = [tuple(v * rinv % q_fq for v in limbs_to_ints(params19._raw_xy[1][i])) for i in idx]
+    if got_lag != [BN254_G1.mul(BN254_G1.g, lag19[i]) for i in idx]:
+        raise AssertionError("setup(19): sampled Lagrange points differ from L_i(tau) G")
+    back19 = ParamsKZG.read(srs19, device=dev)
+    if (not np.array_equal(back19._raw_xy, params19._raw_xy)
+            or (back19.g2, back19.s_g2) != (params19.g2, params19.s_g2)
+            or any(not torch.equal(a, b) for a, b in zip(back19.affine_lagrange_bases(dev),
+                                                         params19.affine_lagrange_bases(dev)))):
+        raise AssertionError("setup(19): the written file reads back to other bases")
+    log(f"[srs] setup(19): g[:2^15] == params/kzg_bn254_15.srs's points; 64 sampled Lagrange "
+        f"points == L_i(tau) G on the host (scalars {t_lag:.2f}s); {len(srs19_bytes)} bytes "
+        f"written and read back to the same bases")
+
+    # (c) the MSM at n = 2^19 on both bases against the host: commit(p) =
+    # p(tau) G (monomial), sum_i v_i L_i(tau) G (Lagrange)
+    n19 = params19.n
+    npg = np.random.default_rng(19)
+    limbs = npg.integers(0, 1 << 16, size=(3, n19, 16), dtype=np.int64)
+    limbs[..., 15] %= r_fr >> 240
+    cols19 = [limbs_to_ints(c) for c in limbs]
+    vals19 = fr_df._to_mont(torch.from_numpy(limbs.transpose(0, 2, 1).astype(np.int32)).to(dev))
+    taus19 = _tau_powers(tau, n19)
+    for basis, weights in (("monomial", taus19), ("Lagrange", lag19)):
+        bases = params19.affine_bases(dev) if basis == "monomial" else params19.affine_lagrange_bases(dev)
+        torch.cuda.synchronize()
+        t = time.time()
+        got = host_points(params19.commit_columns(fr_df, vals19, bases))
+        t_msm = time.time() - t
+        want = [BN254_G1.mul(BN254_G1.g, sum(c * w for c, w in zip(col, weights)) % r_fr)
+                for col in cols19]
+        if got != want:
+            raise AssertionError(f"MSM at 2^19 ({basis} basis) differs from the host's p(tau) G")
+        log(f"[msm19] 3 columns x 2^19 points, {basis} basis: == the host oracle; "
+            f"{t_msm * 1e3:.1f} ms (host clock, with the digits and the affine conversion)")
+    del vals19, cols19, limbs
+
+    # (c) the four-step NTT at 2^19 and 2^21 against the JAX NTT's digests
+    with open(os.path.join(HERE, "tests", "data", "torch_goldens", "ntt_digests_large.json")) as f:
+        nref = json.load(f)
+    for log_n in (19, 21):
+        x = fr_df._to_mont(torch.from_numpy(ntt_input_limbs(log_n, np)).to(dev))
+        ntt_l, coset_l = new_ntt(fr_df, log_n, dev), CosetNTT(fr_df, log_n, 7, dev)
+        outs = {"forward": ntt_l.forward(x), "inverse": ntt_l.inverse(x),
+                "coset_forward": coset_l.forward(x), "coset_inverse": coset_l.inverse(x)}
+        digests = {k: hashlib.sha256(v.cpu().numpy().astype("<u4").tobytes()).hexdigest()
+                   for k, v in outs.items()}
+        if digests != nref[str(log_n)]:
+            raise AssertionError(f"NTT at 2^{log_n} differs from the JAX digests: {digests}")
+        log(f"[ntt] 2^{log_n} (factors {ntt_l.factors}): forward, inverse, coset forward and "
+            f"coset inverse of 2 columns == the JAX NTT's SHA-256")
+        del x, outs
+    del params19, back19, ppk
+    torch.cuda.empty_cache()
+    log(f"[pairing] phase 6 {time.time() - t6:.2f}s")
 
     # --- 5. every kernel at its main-path shapes: check and time ----------------------------
     def numel(shape) -> int:
@@ -1102,6 +1347,11 @@ def main() -> None:
             # need (commit_work)
             (C, _, m), _ = spec
             nbytes, ops = 64 * (C * m + 2 * m + 3 * C), work["commit"][0] * MM_OPS
+        elif name == "g1_batch_mul":
+            # the scalars and G read once, [16, n] Jacobian sums written; the
+            # doublings and mixed adds these scalars need (chain_work)
+            (_, n), = spec
+            nbytes, ops = 64 * (n + 2 + 3 * n), work["g1"][0] * MM_OPS
         elif name == "ntt_butterfly":
             sa, sw = spec
             n = numel(sa) // 16
@@ -1186,6 +1436,8 @@ def main() -> None:
             return (n // lanes) * (11 if distinct else 17) + 16 * ((lanes - 1).bit_length() + 1)
         if name == "commit_dbl_add":
             return work["commit"][1]
+        if name == "g1_batch_mul":
+            return work["g1"][1]
         if name == "ntt_small":
             return ntt_chain(spec)[1]
         (_, CW), W, c = spec
@@ -1201,7 +1453,7 @@ def main() -> None:
         # the kernels off the main path are timed at the shapes it gave them
         # before their fusion
         spec = (largest_e.get(name) or largest15.get(name) or largest9.get(name)
-                or OFF_PATH_SHAPES[name])[1]
+                or largest_p.get(name) or OFF_PATH_SHAPES[name])[1]
         if name == "colntt":
             # the NTT's stage twiddles start at the Montgomery one
             fid, args = make_inputs(name, spec)
@@ -1217,6 +1469,23 @@ def main() -> None:
             if err:
                 raise AssertionError(f"bucket_sums_fused at {spec} disagrees with its plain version")
             work["live_slots"] = int((args[2] > 0).sum())
+        elif name == "g1_batch_mul":
+            # the plain version at 2^20 lanes runs once, timed as it is checked
+            fid, args = make_inputs(name, spec)
+            got = run(name, fid, args, False)
+            torch.cuda.synchronize()
+            e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            e0.record()
+            want = run(name, fid, args, True)
+            e1.record()
+            torch.cuda.synchronize()
+            plain_once = e0.elapsed_time(e1)
+            err = max_err(got, want)
+            if err:
+                raise AssertionError(f"g1_batch_mul at {spec} disagrees with its plain version")
+            del got, want
+            lanes = chain_work(taus19 + lag19)
+            work["g1"] = (sum(lanes), max(lanes))
         else:
             fid, args, err = check(name, spec)
         if name == "fermat_inv":
@@ -1226,7 +1495,8 @@ def main() -> None:
             work["commit"] = commit_work(host_ints(args[0]), spec[0][2])
         reps = 3 if name in ("bucket_scan", "bucket_sums_fused") else 10
         ms = time_ms(lambda: run(name, fid, args, plain=False), reps)
-        plain_ms = time_ms(lambda: run(name, fid, args, plain=True), 1)
+        plain_ms = (plain_once if name == "g1_batch_mul"
+                    else time_ms(lambda: run(name, fid, args, plain=True), 1))
         bms, by = bound(name, spec)
         src, rep = SOURCES[name]
         row = {
@@ -1236,11 +1506,13 @@ def main() -> None:
             "replaces": rep,
             # the main path's launches: the k=9, the two phase-3b k=9
             # circuits', the k=15 slice and the ECDSA runs
-            "launches": launches9[name] + launches_3b[name] + launches15[name] + launches_e[name],
+            "launches": (launches9[name] + launches_3b[name] + launches15[name] + launches_e[name]
+                         + launches_p[name]),
             "launches_k9": launches9[name],
             "launches_k9_phases": launches_3b[name],
             "launches_k15": launches15[name],
             "launches_ecdsa": launches_e[name],
+            "launches_pairing": launches_p[name],
             "max_abs_err": err,
             "ms": round(ms, 6),
             "plain_ms": round(plain_ms, 6),
@@ -1441,6 +1713,7 @@ def main() -> None:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60,
     ).stdout.strip().splitlines()
+    log(f"[total] chip_smoke.py {time.time() - t_start:.1f}s")
     log(smi[0] if smi else "nvidia-smi: no output")
     log(json.dumps({"kernels": rows}))
     print(json.dumps({

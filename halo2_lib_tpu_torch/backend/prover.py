@@ -29,7 +29,7 @@ import torch
 
 from ..gates.circuit import BaseCircuitBuilder, PhysicalCircuit
 from ..ops.limbs import N_LIMBS, ints_to_limbs, limbs_to_ints, to_device
-from ..utils.device import resolve_device
+from ..utils.device import resolve_device, stage_end
 from ..utils.fields import FR_BN254
 from .keygen import BLINDING_FACTORS, DELTA, ProvingKey
 from .kzg import ParamsKZG, host_points
@@ -49,18 +49,6 @@ from .protocol import (
     vanishing_poly,
 )
 from .transcript import Blake2bWrite
-
-
-def _stage(label: str, t0: float, device, timings: dict | None) -> float:
-    """Close a stage: when timing, wait for its device work and record its
-    seconds (without `timings` the device runs ahead)."""
-    if timings is None:
-        return t0
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
-    now = _time.time()
-    timings[label] = now - t0
-    return now
 
 
 def _pad(col: list[int], n: int) -> list[int]:
@@ -342,7 +330,7 @@ def create_proof(
     if rt is None or rt.params is not params or rt.device != device:
         rt = ProverRuntime(params, pk, device)
         pk._runtime = rt
-    _t = _stage("runtime", _t, device, timings)
+    _t = stage_end("runtime", _t, device, timings)
     dom, df = rt.dom, rt.df
     ntt, coset = dom.ntt(device), dom.coset_ntt(device)
     na, nl, ncols = vk.num_advice, vk.num_lookup, len(vk.perm_columns)
@@ -463,7 +451,7 @@ def create_proof(
             tr.write_point(pt)
     else:
         dyn_lag = empty
-    _t = _stage("advice commits", _t, device, timings)
+    _t = stage_end("advice commits", _t, device, timings)
 
     theta = tr.squeeze_challenge()  # lookup input/table compression
 
@@ -494,7 +482,7 @@ def create_proof(
     permuted_lag = _lag_from_u16(df, _u16_cols(permuted_host, n), device)
     for pt in host_points(params.commit_columns(df, permuted_lag, T["lagA"])):
         tr.write_point(pt)
-    _t = _stage("lookup permuted", _t, device, timings)
+    _t = stage_end("lookup permuted", _t, device, timings)
 
     beta = tr.squeeze_challenge()
     gamma = tr.squeeze_challenge()
@@ -609,7 +597,7 @@ def create_proof(
     runtime_ext = coset.forward_cols(_pad_coeff(runtime_coeffs, dom.n_ext))
     for pt in host_points(com3):
         tr.write_point(pt)
-    _t = _stage("grand products", _t, device, timings)
+    _t = stage_end("grand products", _t, device, timings)
 
     y = tr.squeeze_challenge()
 
@@ -734,7 +722,7 @@ def create_proof(
     com4 = params.commit_columns(df, h_pieces.contiguous(), T["monoA"])
     for pt in host_points(com4):
         tr.write_point(pt)
-    _t = _stage("quotient", _t, device, timings)
+    _t = stage_end("quotient", _t, device, timings)
 
     x = tr.squeeze_challenge()
     pts = point_values(x, k)
@@ -768,7 +756,7 @@ def create_proof(
     for label, pts_labels in plan:
         for pl in pts_labels:
             tr.write_scalar(evals[label][pl])
-    _t = _stage("evals", _t, device, timings)
+    _t = stage_end("evals", _t, device, timings)
 
     # === SHPLONK h_open ====================================================
     v = tr.squeeze_challenge()
@@ -851,7 +839,7 @@ def create_proof(
     q_coeffs = ntt.inverse_cols(q_evals[None])[0]
     com7 = params.commit_columns(df, q_coeffs[None], T["monoA"])
     tr.write_point(host_points(com7)[0])
-    _t = _stage("shplonk", _t, device, timings)
+    _t = stage_end("shplonk", _t, device, timings)
     return tr.finalize()
 
 

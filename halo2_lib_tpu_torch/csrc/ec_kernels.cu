@@ -33,7 +33,12 @@
 //   commit_dbl_add: a chain launch, one thread per (column, lane) running its
 //     scalar's double-and-add from the top bit with the accumulator in
 //     registers and the mixed add only where the bit is 1, then a tree launch
-//     of one block per column over the lanes' sums in shared memory.
+//     of one block per column over the lanes' sums in shared memory;
+// and the SRS setup's per-lane double-and-add of the generator
+// (halo2_lib_tpu/backend/kzg.py:635-661, a lax.scan of _ec_double_kernel and
+// _ec_add_kernel steps on every lane):
+//   g1_batch_mul: commit_dbl_add's chain launch alone (one column, no tree),
+//     every lane reading the one base G (a base stride of 0).
 //
 // Bound on the H100: integer multiply issue. A complete add is 16 Montgomery
 // products on its add path (the doubling branch, taken on no lane of an MSM
@@ -598,13 +603,15 @@ __device__ __forceinline__ Jac ec_madd_branch(const Jac& P, const Fe& x2, const 
 // the result is unchanged. Every product is a call of one out-of-line copy
 // (MulCalled), so the step's code stays in the instruction cache. scal:
 // [C, 16, m] canonical scalars; ax, ay: [16, ldb] affine bases, lane e of
-// every column adding base e; sx, sy, sz: [C, 16, m] each lane's sum.
+// every column adding base e * bstep (bstep 0: every lane adds base 0, the
+// generator of g1_batch_mul); sx, sy, sz: [C, 16, m] each lane's sum.
 constexpr int COMMIT_THREADS = 64;
 
 __global__ void __launch_bounds__(COMMIT_THREADS)
 commit_chain_k(const int32_t* __restrict__ scal, const int32_t* __restrict__ ax,
-               const int32_t* __restrict__ ay, int64_t ldb, int32_t* __restrict__ sx,
-               int32_t* __restrict__ sy, int32_t* __restrict__ sz, int64_t C, int64_t m) {
+               const int32_t* __restrict__ ay, int64_t ldb, int64_t bstep,
+               int32_t* __restrict__ sx, int32_t* __restrict__ sy, int32_t* __restrict__ sz,
+               int64_t C, int64_t m) {
   const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= C * m) return;
   const int64_t col = i / m, e = i % m;
@@ -616,7 +623,7 @@ commit_chain_k(const int32_t* __restrict__ scal, const int32_t* __restrict__ ax,
     if (s.w[k]) top = 32 * k + 31 - __clz(s.w[k]);
   Jac acc = identity();
   if (top >= 0) {
-    const Fe x2 = load(ax, 1, ldb, 0, e), y2 = load(ay, 1, ldb, 0, e);
+    const Fe x2 = load(ax, 1, ldb, 0, e * bstep), y2 = load(ay, 1, ldb, 0, e * bstep);
     for (int b = top; b >= 0; b--) {
       uint32_t word = 0;
 #pragma unroll
@@ -773,7 +780,7 @@ extern "C" int h2_commit_dbl_add(const int32_t* scal, const int32_t* ax, const i
   int32_t *sx = scratch, *sy = scratch + C * 16 * m, *sz = scratch + 2 * C * 16 * m;
   const int64_t n = C * m;
   commit_chain_k<<<(unsigned)((n + COMMIT_THREADS - 1) / COMMIT_THREADS), COMMIT_THREADS, 0, s>>>(
-      scal, ax, ay, ldb, sx, sy, sz, C, m);
+      scal, ax, ay, ldb, 1, sx, sy, sz, C, m);
   int rc = (int)cudaGetLastError();
   if (rc) return rc;
   const size_t smem = (size_t)m * sizeof(Jac);
@@ -781,5 +788,17 @@ extern "C" int h2_commit_dbl_add(const int32_t* scal, const int32_t* ax, const i
                                  (int)smem);
   if (rc) return rc;
   commit_tree_k<<<(unsigned)C, TREE_THREADS, smem, s>>>(sx, sy, sz, ox, oy, oz, (int)m);
+  return (int)cudaGetLastError();
+}
+
+// s_i G for every lane: scal [16, n] canonical scalars; gx, gy: [16, 1] the
+// affine generator (Montgomery); ox, oy, oz: [16, n] each lane's Jacobian
+// sum. The chain launch of commit_dbl_add alone (one column, no tree), every
+// lane adding the one base.
+extern "C" int h2_g1_batch_mul(const int32_t* scal, const int32_t* gx, const int32_t* gy,
+                               int32_t* ox, int32_t* oy, int32_t* oz, int64_t n, void* stream) {
+  if (n > 0)
+    commit_chain_k<<<(unsigned)((n + COMMIT_THREADS - 1) / COMMIT_THREADS), COMMIT_THREADS, 0,
+                     (cudaStream_t)stream>>>(scal, gx, gy, 1, 0, ox, oy, oz, 1, n);
   return (int)cudaGetLastError();
 }

@@ -27,6 +27,8 @@ wrapper            replaces (halo2_lib_tpu/ops/pallas_field.py)    source
 ``msm_combine``    ``_ec_double_kernel`` + ``_ec_add_kernel`` loops ``ec_kernels.cu``
 ``commit_dbl_add`` ``_ec_double_kernel`` + ``_ec_madd_kernel`` scan,   ``ec_kernels.cu``
                    then the ``_ec_add_kernel`` lane tree
+``g1_batch_mul``   ``_ec_double_kernel`` + ``_ec_add_kernel`` scan of   ``ec_kernels.cu``
+                   the SRS setup (every lane times G)
 =================  =============================================  ==========================
 
 ``bucket_sums_fused``, ``bucket_weight`` and ``msm_combine`` fuse what a
@@ -38,9 +40,13 @@ reference off the MSM's path), the weighted bucket reduction and the window
 combine, each in the loops' order. ``commit_dbl_add`` fuses the small-column
 commit (``halo2_lib_tpu/backend/kzg.py:499-519``: 254 scan steps of a
 doubling and a selected mixed add, then ``tree_reduce``) into two launches;
-``ec_double``, ``ec_madd`` and ``ec_add`` stay as the checked literal ports,
-off every path. ``fermat_inv`` computes the Fermat kernel's function (the
-Montgomery-form inverse) by a binary-GCD inversion (safegcd divsteps).
+``g1_batch_mul`` is the SRS setup's per-lane double-and-add of the generator
+(``halo2_lib_tpu/backend/kzg.py:635-661``, a scan of ``_double`` and the
+complete ``_add``): commit_dbl_add's chain launch alone, its mixed add
+taking G in every lane. ``ec_double``, ``ec_madd`` and ``ec_add`` stay as
+the checked literal ports, off every path. ``fermat_inv`` computes the
+Fermat kernel's function (the Montgomery-form inverse) by a binary-GCD
+inversion (safegcd divsteps).
 
 They are compiled with ``nvcc`` for ``sm_90a`` into one shared library with
 a plain C interface, at first use, under ``halo2_lib_tpu_torch/_build/``
@@ -91,6 +97,7 @@ KERNELS = (
     "bucket_weight",
     "msm_combine",
     "commit_dbl_add",
+    "g1_batch_mul",
 )
 # launches of each kernel since the last reset_launches(), and the operand
 # shapes of each kernel's largest launch in that time (chip_smoke.py times
@@ -199,11 +206,12 @@ def _lib():
         lib.h2_bucket_weight.argtypes = [P] * 6 + [I64, I64, I, P]
         lib.h2_msm_combine.argtypes = [P] * 6 + [I64, I, I, P]
         lib.h2_commit_dbl_add.argtypes = [P] * 3 + [I64] + [P] * 4 + [I64, I64, P]
+        lib.h2_g1_batch_mul.argtypes = [P] * 6 + [I64, P]
         for fn in (
             "h2_mont_mul", "h2_field_add", "h2_field_sub", "h2_fermat_inv",
             "h2_ntt_butterfly", "h2_ntt_small", "h2_colntt", "h2_ec_add", "h2_ec_double", "h2_ec_madd",
             "h2_bucket_scan", "h2_bucket_sums", "h2_bucket_weight", "h2_msm_combine",
-            "h2_commit_dbl_add", "h2_mul_chain",
+            "h2_commit_dbl_add", "h2_g1_batch_mul", "h2_mul_chain",
         ):
             getattr(lib, fn).restype = I
         _LIB = lib
@@ -892,22 +900,36 @@ def _tree64(P, lanes: int, c: _Consts):
     return tuple(t[..., 0] for t in P)
 
 
-def commit_dbl_add_plain(scalars, Ax, Ay):
-    """The small-column commit of commit_dbl_add on int64 rows: every
-    (column, lane) at once, for the 254 scalar bits from the top, ec_double64
-    and then ec_madd64 (with its doubling branch) kept where the bit is 1;
-    then each column's halving tree of ec_add64."""
-    C, _, m = scalars.shape
-    c = _consts(FQ, scalars.device)
-    s = scalars.to(torch.int64).permute(1, 0, 2).reshape(N_LIMBS, C * m)  # lane = col * m + e
-    x2, y2 = (t[:, :m].to(torch.int64).repeat(1, C) for t in (Ax, Ay))
-    zero = torch.zeros((N_LIMBS, C * m), dtype=torch.int64, device=scalars.device)
+def _chains64(s, x2, y2, c: _Consts):
+    """Every lane of [16, N] canonical scalar rows s at once, for the 254
+    bits from the top: ec_double64, then ec_madd64 (with its doubling
+    branch) with its affine base (x2, y2) kept where the bit is 1."""
+    zero = torch.zeros(s.shape, dtype=torch.int64, device=s.device)
     acc = (zero, zero, zero)
     for b in range(253, -1, -1):
         bit = ((s[b // 16] >> (b % 16)) & 1) != 0
         acc = ec_double64(acc, c)
         acc = tuple(torch.where(bit, a, d) for a, d in zip(ec_madd64(acc, x2, y2, False, c), acc))
-    return tuple(t.to(torch.int32) for t in _tree64(acc, m, c))
+    return acc
+
+
+def commit_dbl_add_plain(scalars, Ax, Ay):
+    """The small-column commit of commit_dbl_add on int64 rows: every
+    (column, lane)'s chain at once (_chains64), then each column's halving
+    tree of ec_add64."""
+    C, _, m = scalars.shape
+    c = _consts(FQ, scalars.device)
+    s = scalars.to(torch.int64).permute(1, 0, 2).reshape(N_LIMBS, C * m)  # lane = col * m + e
+    x2, y2 = (t[:, :m].to(torch.int64).repeat(1, C) for t in (Ax, Ay))
+    return tuple(t.to(torch.int32) for t in _tree64(_chains64(s, x2, y2, c), m, c))
+
+
+def g1_batch_mul_plain(scalars, Gx, Gy):
+    """The chains of commit_dbl_add_plain with one base for every lane."""
+    n = scalars.shape[1]
+    c = _consts(FQ, scalars.device)
+    x2, y2 = (t.to(torch.int64).expand(N_LIMBS, n) for t in (Gx, Gy))
+    return tuple(t.to(torch.int32) for t in _chains64(scalars.to(torch.int64), x2, y2, c))
 
 
 # --- wrappers ------------------------------------------------------------------------
@@ -1030,6 +1052,8 @@ def ntt_small(fid: int, x, tw, pre=None, post=None):
 
 # largest sub-transform the kernel holds in one block's shared memory
 COLNTT_MAX_A = 1024
+# one colntt call holds fewer limbs than this (the kernel's 32-bit offsets)
+COLNTT_MAX_LIMBS = 1 << 31
 
 
 def colntt(fid: int, x, tw, mid=None):
@@ -1048,7 +1072,7 @@ def colntt(fid: int, x, tw, mid=None):
         raise ValueError(f"stage twiddles {tuple(tw.shape)} != {(N_LIMBS, A // 2)}")
     if mid is not None and tuple(mid.shape) != (A, N_LIMBS, B):
         raise ValueError(f"mid twiddles {tuple(mid.shape)} != {(A, N_LIMBS, B)}")
-    if A * N_LIMBS * B >= 1 << 31:
+    if A * N_LIMBS * B >= COLNTT_MAX_LIMBS:
         raise ValueError(f"one column set [{A}, 16, {B}] exceeds the kernel's 32-bit offsets")
     if _on_cpu(*ts):
         return colntt_plain(fid, x, tw, mid)
@@ -1328,4 +1352,37 @@ def commit_dbl_add(scalars, Ax, Ay):
     )
     _check_rc(rc, "commit_dbl_add")
     _count("commit_dbl_add", C * m, (tuple(sc.shape), tuple(ax.shape)))
+    return tuple(outs)
+
+
+def g1_batch_mul(scalars, Gx, Gy):
+    """s_i * G for every lane i: the per-lane double-and-add of the SRS setup.
+
+    scalars: int32[16, n] canonical (not Montgomery) Fr scalars; (Gx, Gy):
+    int32[16, 1] the Montgomery affine base every lane multiplies (not the
+    identity). Returns Jacobian (X, Y, Z), each int32[16, n]: for bit 253
+    down to 0 a doubling and, where the bit is 1, the mixed add with its
+    doubling branch, so the same affine points as the JAX package's scan of
+    ``_double`` and the complete ``_add`` (``halo2_lib_tpu/backend/kzg.py:
+    635-661``), whose Jacobian triples differ (it adds G with Z = 1 by the
+    complete formula).
+
+    On the card, one launch of commit_dbl_add's chain kernel (one thread a
+    lane, the accumulator in registers), G read by every lane (a base stride
+    of 0, so no [16, n] copy of it). Bound by one thread's chain: 254
+    doublings of 7 Montgomery products and a mixed add of 11 per set bit."""
+    if scalars.dim() != 2 or scalars.shape[0] != N_LIMBS:
+        raise ValueError(f"expected scalars [16, n], got {tuple(scalars.shape)}")
+    if Gx.shape != (N_LIMBS, 1) or Gy.shape != (N_LIMBS, 1):
+        raise ValueError(f"base {tuple(Gx.shape)}, {tuple(Gy.shape)} is not [16, 1]")
+    if _on_cpu(scalars, Gx, Gy):
+        return g1_batch_mul_plain(scalars, Gx, Gy)
+    n = scalars.shape[1]
+    sc, gx, gy = scalars.contiguous(), Gx.contiguous(), Gy.contiguous()
+    outs = [torch.empty((N_LIMBS, n), dtype=torch.int32, device=sc.device) for _ in range(3)]
+    if n == 0:
+        return tuple(outs)
+    rc = _lib().h2_g1_batch_mul(_ptr(sc), _ptr(gx), _ptr(gy), *map(_ptr, outs), n, _stream(sc))
+    _check_rc(rc, "g1_batch_mul")
+    _count("g1_batch_mul", n, (tuple(sc.shape),))
     return tuple(outs)

@@ -28,7 +28,9 @@ from .limbs import N_LIMBS, DeviceField, ints_to_limbs_T, to_device
 # Columns per dispatch of FourStepNTT's forward_cols/inverse_cols: bounds the
 # temporaries between its levels (no compile cache to share, unlike the JAX
 # package's chunks). NTT needs none: its one launch keeps every column in
-# shared memory.
+# shared memory. FourStepNTT takes fewer from 2^21 points, where the base
+# level's one colntt call (every column's lanes side by side) would pass the
+# kernel's 32-bit offsets (63 columns at 2^21).
 NTT_CHUNK = 64
 
 
@@ -163,12 +165,11 @@ class FourStepNTT(NTT):
     values as NTT, one colntt launch per level; the diagonals of forward and
     inverse are one mont_mul launch each."""
 
-    CHUNK = NTT_CHUNK
-
     def _init_tables(self) -> None:
         if self.n < MIN_FOURSTEP:
             raise ValueError(f"four-step NTT needs n >= {MIN_FOURSTEP}, got {self.n}")
         n, dev = self.n, self.device
+        self.CHUNK = max(1, min(NTT_CHUNK, (cf.COLNTT_MAX_LIMBS - 1) // (N_LIMBS * n)))
         self.factors = _plan(n)
         self._levels = {}
         for forward in (True, False):

@@ -15,11 +15,14 @@ from ..core.cells import Constant, Existing
 from ..core.dyn_lookup import BasicDynLookupManager
 from ..ecc.ec import EccChip
 from ..ecc.ecdsa import ecdsa_sign, ecdsa_verify_no_pubkey_check
+from ..ecc.fields_ext import Fp12Chip
 from ..ecc.fp import FpChip
+from ..ecc.pairing import PairingChip
 from ..gates.circuit import BaseCircuitBuilder, CircuitBuilderStage
 from ..gates.flex_gate import GateChip
-from .curves import SECP256K1
-from .fields import FR_BN254
+from . import bn254_pairing
+from .curves import BN254_G1, BN254_G2, SECP256K1
+from .fields import FQ_BN254, FR_BN254
 
 GOLDEN_K = 9
 
@@ -195,4 +198,47 @@ def ecdsa_circuit(
     p = builder.config_params
     p.num_advice_per_phase[0] = max(p.num_advice_per_phase[0], 2)
     p.num_lookup_advice_per_phase[0] = max(p.num_lookup_advice_per_phase[0], 1)
+    return builder
+
+
+# configs/bn254/pairing_circuit.config: degree 19, lookup_bits 18, 90-bit
+# limbs, 3 limbs (its column counts are what calculate_params gives)
+PAIRING_K, PAIRING_LOOKUP_BITS, PAIRING_LIMB_BITS, PAIRING_NUM_LIMBS = 19, 18, 90, 3
+
+
+def pairing_inputs(seed: int = 71):
+    """(P, Q): P a random G1 point, Q = s G2 with 1 <= s < 2^40, drawn from
+    random.Random(seed) (tests/test_pairing.py's inputs at seed 71)."""
+    rng = random.Random(seed)
+    P = BN254_G1.random_point(rng)
+    s = rng.randrange(1, 1 << 40)
+    return P, BN254_G2.mul(BN254_G2.g, s)
+
+
+def pairing_witness(builder: BaseCircuitBuilder, inputs) -> BaseCircuitBuilder:
+    """The optimal Ate pairing e(P, Q) in the circuit, on a MOCK or PROVER
+    builder (tests/test_pairing.py:33-45): P and Q loaded unchecked,
+    PairingChip.pairing (Miller loop and final exponentiation). Asserts the
+    in-circuit Fp12 value equals the host pairing."""
+    P, Q = inputs
+    fp_chip = FpChip(builder.range_chip(), PAIRING_LIMB_BITS, PAIRING_NUM_LIMBS, FQ_BN254)
+    chip = PairingChip(fp_chip)
+    ctx = builder.main(0)
+    p_a = chip.load_private_g1_unchecked(ctx, P)
+    q_a = chip.load_private_g2_unchecked(ctx, Q)
+    f = chip.pairing(ctx, q_a, p_a)
+    got = Fp12Chip(fp_chip).get_fq12_value(f)
+    if got != bn254_pairing.pairing(P, Q):
+        raise AssertionError("in-circuit pairing != host pairing")
+    return builder
+
+
+def pairing_circuit(stage: CircuitBuilderStage = CircuitBuilderStage.MOCK) -> BaseCircuitBuilder:
+    """The BN254 pairing circuit at configs/bn254/pairing_circuit.config on
+    pairing_inputs(), sized by calculate_params (7 advice, 1 lookup-advice
+    and 1 fixed column, about 3.5M advice cells)."""
+    builder = BaseCircuitBuilder.from_stage(stage).use_k(PAIRING_K)
+    builder.set_lookup_bits(PAIRING_LOOKUP_BITS)
+    pairing_witness(builder, pairing_inputs())
+    builder.calculate_params(minimum_rows=9)
     return builder

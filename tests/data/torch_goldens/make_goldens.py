@@ -34,12 +34,26 @@ itself,
 * ``ecdsa_k15.json`` (with ``--ecdsa``): the SHA-256 of the vk and of the
   seed-0 proof of the repo's secp256k1 ECDSA-verify bench circuit at k=15
   (``bench.py``: keygen builder, pinned prover builder, create_proof), and
-  its column counts.
+  its column counts;
+* ``ntt_digests_large.json`` (with ``--large``, which freezes this and
+  nothing else): the digests of ``ntt_digests.json`` at log n = 19 and 21
+  (the k=19 prover's domain and extended domain), two columns made by
+  ``ntt_inputs``;
+* ``pairing_k19.json`` (with ``--pairing``, which freezes this and nothing
+  else): the SHA-256 of the k=19 SRS bytes (the JAX ``ParamsKZG`` of
+  ``host_srs``: the reference tau, points by host arithmetic), the column
+  counts of the BN254 pairing circuit at ``configs/bn254/pairing_circuit.config``
+  (built as ``pairing_circuit`` below), and the SHA-256 of its vk and of its
+  seed-0 proof (keygen builder, pinned prover builder, create_proof),
+  written after each stage with what is known so far. A full-size run:
+  hours of CPU.
 
 Run from the repository root:
 
     JAX_PLATFORMS=cpu python tests/data/torch_goldens/make_goldens.py [--k15] [--ecdsa] [--ops-only]
     JAX_PLATFORMS=cpu python tests/data/torch_goldens/make_goldens.py --phases
+    JAX_PLATFORMS=cpu python tests/data/torch_goldens/make_goldens.py --large
+    JAX_PLATFORMS=cpu python tests/data/torch_goldens/make_goldens.py --pairing
 
 The circuits are built here with the JAX eDSL, step for step as the port's
 ``utils/testing.py`` builds them with its own copy (the ECDSA circuit with
@@ -201,7 +215,12 @@ def ntt_inputs(log_n: int, cols: int = 2) -> list[list[int]]:
     ]
 
 
-def freeze_ntt() -> None:
+def freeze_ntt(log_ns=range(1, 11), name: str = "ntt_digests.json") -> None:
+    """The JAX NTT's forward, inverse, coset-forward and coset-inverse
+    (shift 7) SHA-256 at each log n. Each transform runs as one jit of the
+    NTT's body on the two columns, without the chunk padding of
+    forward/inverse (the same values; a quarter of the memory at 2^21)."""
+    import jax
     import jax.numpy as jnp
 
     from halo2_lib_tpu.ops.limbs import DeviceField
@@ -209,24 +228,25 @@ def freeze_ntt() -> None:
 
     df = DeviceField(FR_BN254)
     out = {}
-    for log_n in range(1, 11):
+    for log_n in log_ns:
+        t = time.time()
         cols = ntt_inputs(log_n)
         x = jnp.stack([df.pack(c) for c in cols])  # [2, 16, n] Montgomery
         ntt, coset = NTT(df, log_n), CosetNTT(df, log_n, 7)
-        res = {
-            "forward": ntt.forward(x),
-            "inverse": ntt.inverse(x),
-            "coset_forward": coset.forward(x),
-            "coset_inverse": coset.inverse(x),
+        fns = {
+            "forward": lambda c: ntt._body(c, True),
+            "inverse": lambda c: ntt._body(c, False),
+            "coset_forward": lambda c: coset.ntt._body(df._mont_mul(c, coset.shift_pows), True),
+            "coset_inverse": lambda c: df._mont_mul(coset.ntt._body(c, False), coset.shift_inv_pows),
         }
         out[str(log_n)] = {
-            k: hashlib.sha256(np.asarray(v).astype("<u4").tobytes()).hexdigest()
-            for k, v in res.items()
+            k: hashlib.sha256(np.asarray(jax.jit(fn)(x)).astype("<u4").tobytes()).hexdigest()
+            for k, fn in fns.items()
         }
-    with open(os.path.join(HERE, "ntt_digests.json"), "w") as f:
+        print(f"{name}: log n = {log_n} {time.time() - t:.1f}s", flush=True)
+    with open(os.path.join(HERE, name), "w") as f:
         json.dump(out, f, indent=1)
         f.write("\n")
-    print("ntt_digests: log n = 1..10", flush=True)
 
 
 def field_values(seed: int, lanes: int = 72) -> list[int]:
@@ -531,6 +551,179 @@ def freeze_ecdsa() -> None:
     print(f"ecdsa_k15: {out} {time.time() - t:.1f}s", flush=True)
 
 
+PAIRING_K, PAIRING_LOOKUP_BITS = 19, 18  # configs/bn254/pairing_circuit.config
+
+
+def pairing_inputs(seed: int = 71):
+    """(P, Q) of tests/test_pairing.py at seed 71: P a random G1 point, Q =
+    s G2 with s < 2^40."""
+    from halo2_lib_tpu.utils.curves import BN254_G1, BN254_G2
+
+    rng = random.Random(seed)
+    P = BN254_G1.random_point(rng)
+    s = rng.randrange(1, 1 << 40)
+    return P, BN254_G2.mul(BN254_G2.g, s)
+
+
+def pairing_witness(builder, inputs):
+    """tests/test_pairing.py:33-45 at limb_bits 90, 3 limbs."""
+    from halo2_lib_tpu.ecc.fields_ext import Fp12Chip
+    from halo2_lib_tpu.ecc.fp import FpChip
+    from halo2_lib_tpu.ecc.pairing import PairingChip
+    from halo2_lib_tpu.utils import bn254_pairing
+    from halo2_lib_tpu.utils.fields import FQ_BN254
+
+    P, Q = inputs
+    fp_chip = FpChip(builder.range_chip(), 90, 3, FQ_BN254)
+    chip = PairingChip(fp_chip)
+    ctx = builder.main(0)
+    p_a = chip.load_private_g1_unchecked(ctx, P)
+    q_a = chip.load_private_g2_unchecked(ctx, Q)
+    f = chip.pairing(ctx, q_a, p_a)
+    assert Fp12Chip(fp_chip).get_fq12_value(f) == bn254_pairing.pairing(P, Q)
+    return builder
+
+
+def pairing_circuit(k: int = PAIRING_K, lookup_bits: int = PAIRING_LOOKUP_BITS):
+    builder = BaseCircuitBuilder.from_stage(CircuitBuilderStage.MOCK).use_k(k)
+    builder.set_lookup_bits(lookup_bits)
+    pairing_witness(builder, pairing_inputs())
+    builder.calculate_params(minimum_rows=9)
+    return builder
+
+
+SRS_WINDOW = 8  # bits a window of host_srs's fixed-base tables
+
+
+def _fixed_base_tables():
+    """T[w][d] = d * 2^(8w) G1 in affine form, d < 256, for 32 windows."""
+    from halo2_lib_tpu.utils.curves import BN254_G1
+
+    tables, base = [], BN254_G1.g
+    for _ in range(256 // SRS_WINDOW):
+        row = [None, base]
+        for _ in range(2, 1 << SRS_WINDOW):
+            row.append(BN254_G1.add(row[-1], base))
+        tables.append(row)
+        base = BN254_G1.add(row[-1], base)
+    return tables
+
+
+def _fixed_base_muls(scalars: list[int]) -> list:
+    """[s * G1] in affine form (None for 0): per scalar one Jacobian mixed
+    add (madd-2007-bl) of T[w][digit] per nonzero 8-bit window, then one
+    inversion. No add meets equal or opposite points: the partial sum is
+    below 2^(8w) G before window w adds at least 2^(8w) G, and every value
+    stays below r but the whole scalar."""
+    from halo2_lib_tpu.utils.fields import FQ_BN254
+
+    q = FQ_BN254.p
+    tables = _fixed_base_tables()
+    mask = (1 << SRS_WINDOW) - 1
+    out = []
+    for sc in scalars:
+        acc = None
+        for w, row in enumerate(tables):
+            d = (sc >> (SRS_WINDOW * w)) & mask
+            if not d:
+                continue
+            x2, y2 = row[d]
+            if acc is None:
+                acc = (x2, y2, 1)
+                continue
+            X1, Y1, Z1 = acc
+            zz = Z1 * Z1 % q
+            h = (x2 * zz - X1) % q
+            hh = h * h % q
+            i4 = 4 * hh % q
+            j = h * i4 % q
+            rr = 2 * (y2 * Z1 * zz - Y1) % q
+            v = X1 * i4 % q
+            X3 = (rr * rr - j - 2 * v) % q
+            acc = (X3, (rr * (v - X3) - 2 * Y1 * j) % q, ((Z1 + h) * (Z1 + h) - zz - hh) % q)
+        if acc is None:
+            out.append(None)
+            continue
+        zi = pow(acc[2], -1, q)
+        zi2 = zi * zi % q
+        out.append((acc[0] * zi2 % q, acc[1] * zi2 * zi % q))
+    return out
+
+
+def host_srs(k: int, procs: int = 4):
+    """The JAX package's ParamsKZG for k with the reference tau, its points
+    made by host arithmetic: tau^i and the JAX package's own L_i(tau), each
+    times G1 by fixed-base windows in `procs` processes. Affine points are
+    unique, so the bytes are those ParamsKZG.setup(k) makes; its device scan
+    (`_batch_g1_mul`) takes hours on the CPU at k=19."""
+    import multiprocessing
+
+    from halo2_lib_tpu.backend.kzg import _lagrange_scalars
+    from halo2_lib_tpu.utils.chacha import reference_srs_tau
+    from halo2_lib_tpu.utils.curves import BN254_G1, BN254_G2
+
+    r, n = FR_BN254.p, 1 << k
+    tau = reference_srs_tau()
+    scalars = [1] * n
+    for i in range(1, n):
+        scalars[i] = scalars[i - 1] * tau % r
+    scalars += _lagrange_scalars(tau, k)
+    step = -(-len(scalars) // (8 * procs))
+    chunks = [scalars[i : i + step] for i in range(0, len(scalars), step)]
+    with multiprocessing.get_context("spawn").Pool(procs) as pool:
+        pts = [pt for part in pool.map(_fixed_base_muls, chunks) for pt in part]
+    for i in (0, 1, 2, n - 1, n, 2 * n - 1):  # spot checks by the plain ladder
+        assert pts[i] == BN254_G1.mul(BN254_G1.g, scalars[i]), i
+    return ParamsKZG(k, pts[:n], pts[n:], BN254_G2.g, BN254_G2.mul(BN254_G2.g, tau))
+
+
+def freeze_pairing() -> None:
+    """The SRS, keygen and seed-0 proof of the pairing circuit at k=19 with
+    the JAX package (its SRS from ``host_srs``, never written to params/;
+    its first 2^15 points must be the committed k=15 file's).
+    pairing_k19.json is rewritten after each stage with the digests known so
+    far, so a run stopped before its end still leaves the SRS's and the vk's;
+    the proof's are written only once it verifies."""
+    import resource
+
+    from halo2_lib_tpu.utils.pinning import pinning_of
+
+    t = time.time()
+    out = {"k": PAIRING_K, "lookup_bits": PAIRING_LOOKUP_BITS, "seed": 0}
+
+    def stage(name: str, **found) -> None:
+        out.update(found)
+        with open(os.path.join(HERE, "pairing_k19.json"), "w") as f:
+            json.dump(out, f, indent=1)
+            f.write("\n")
+        peak = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 2**20
+        print(f"pairing_k19: {name} done at {time.time() - t:.1f}s, peak RSS {peak:.2f} GiB, "
+              f"{found}", flush=True)
+
+    params = host_srs(PAIRING_K)
+    srs15 = ParamsKZG.read(os.path.join(ROOT, "params", "kzg_bn254_15.srs"))
+    assert params.g[: 1 << 15] == srs15.g, "host SRS differs from params/kzg_bn254_15.srs"
+    del srs15
+    stage("setup", srs_sha256=hashlib.sha256(params.to_halo2_bytes()).hexdigest())
+    builder = pairing_circuit()
+    stage("MOCK witness")
+    pk = keygen(params, builder)
+    cp = builder.config_params
+    stage(
+        "keygen",
+        vk_sha256=hashlib.sha256(pk.vk.to_bytes()).hexdigest(),
+        num_advice_per_phase=list(cp.num_advice_per_phase),
+        num_lookup_advice_per_phase=list(cp.num_lookup_advice_per_phase),
+        num_fixed=cp.num_fixed,
+    )
+    pb = pairing_witness(pinning_of(builder).prover_builder(), pairing_inputs())
+    stage("pinned witness")
+    proof = create_proof(params, pk, pb, seed=0)
+    stage("create_proof")
+    assert verify_proof(params, pk.vk, proof)
+    stage("verify_proof", proof_sha256=hashlib.sha256(proof).hexdigest(), proof_bytes=len(proof))
+
+
 def limbs16(cols, n: int) -> np.ndarray:
     """Int columns -> uint16[C, n, 16] little-endian limbs."""
     out = np.zeros((len(cols), n, 16), dtype=np.uint16)
@@ -574,6 +767,12 @@ def freeze(name: str, builder, instances, params, prover=None) -> None:
 
 
 def main() -> None:
+    if "--large" in sys.argv:
+        freeze_ntt((19, 21), "ntt_digests_large.json")
+        return
+    if "--pairing" in sys.argv:
+        freeze_pairing()
+        return
     if "--phases" in sys.argv:
         params9 = ParamsKZG.read(os.path.join(ROOT, "params", "kzg_bn254_9.srs"))
         freeze("multiphase_k9", rlc_circuit(), None, params9, rlc_prover)

@@ -371,3 +371,36 @@ def test_commit_dbl_add(dev, C, m):
     assert cf.LAUNCHES["commit_dbl_add"] == 1
     for k, pl, old in zip(got, cf.commit_dbl_add_plain(scal, *A), _old_commit(dc, scal, A)):
         assert torch.equal(k, pl) and torch.equal(k, old)
+
+
+@pytest.mark.parametrize("n", [1, 13, 300])
+def test_g1_batch_mul(dev, n):
+    """The SRS setup's per-lane double-and-add of G against its plain
+    version (Jacobian-equal), with scalars 0, 1 and r - 1, one launch."""
+    gen = torch.Generator().manual_seed(n)
+    scal = _rand((16, n), FR_BN254.p, gen, "cpu")
+    r = FR_BN254.p
+    for lane, v in enumerate((0, 1, r - 1)[:n]):
+        scal[:, lane] = torch.tensor([(v >> (16 * i)) & 0xFFFF for i in range(16)],
+                                     dtype=torch.int32)
+    dc = DeviceCurve(DeviceField(BN254_G1.base), BN254_G1)
+    Gx, Gy = dc.pack_points_affine([BN254_G1.g], dev)
+    cf.reset_launches()
+    got = cf.g1_batch_mul(scal.to(dev), Gx, Gy)
+    assert cf.LAUNCHES["g1_batch_mul"] == 1
+    want = cf.g1_batch_mul_plain(scal.to(dev), Gx, Gy)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+
+
+def test_setup_on_the_card_reproduces_the_committed_srs(dev):
+    """ParamsKZG.setup(9) through g1_batch_mul on the card: byte for byte
+    params/kzg_bn254_9.srs."""
+    import os
+
+    from halo2_lib_tpu_torch.backend.kzg import ParamsKZG
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    with open(os.path.join(root, "params", "kzg_bn254_9.srs"), "rb") as f:
+        want = f.read()
+    assert ParamsKZG.setup(9, device=dev).to_halo2_bytes() == want

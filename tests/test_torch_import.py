@@ -39,6 +39,15 @@ def test_no_forbidden_imports():
     assert not bad, bad
 
 
+def test_srs_and_pairing_modules_are_walked():
+    """The SRS generator and the pairing gadgets are among the files the
+    import check walks."""
+    walked = {os.path.relpath(f, PORT) for f in _port_files()}
+    for rel in ("utils/chacha.py", "backend/kzg.py", "ecc/fields_ext.py", "ecc/pairing.py",
+                "ecc/final_exp.py", "utils/testing.py"):
+        assert rel in walked, rel
+
+
 def test_k8_prove_without_jax(tmp_path_factory):
     """keygen -> create_proof -> verify_proof with jax, the JAX package and
     the native engine unimportable (the instance-column circuit at k=9,
