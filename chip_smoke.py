@@ -98,6 +98,32 @@ printing its own lines; any failure raises and exits non-zero:
              (ntt_digests_large.json). The SRS, columns, vk and proof are
              held to each digest pairing_k19.json holds (the JAX run writes
              them stage by stage), and printed.
+7. bench   - (phases 7-9 run after 6, before 5) the headline's own path:
+             warm_prover on the ECDSA key of phase 4b, then bench.py's e2e
+             region (the pinned prover builder's witness and create_proof,
+             warm key) in turns plain, pipelined, pipelined, plain: the
+             pipelined runs (backend/pipeline.py) commit the finished advice
+             columns on a second CUDA stream while the witness runs. Every proof is
+             byte-equal to the others and its SHA-256 to the JAX digest
+             (ecdsa_k15.json); one verifies, a tampered copy is rejected. Each
+             run's seconds and stages, the commit groups and the pipelined
+             proof's launches (counts reset just before it) printed. Then the
+             k=9 golden circuit pipelined (commit_dbl_add on the side stream):
+             bytes equal to golden_k9.npz.
+8. mock    - DeviceMockProver (the gate stencil through mont_mul, field_add
+             and field_sub on the card, the copy gather) on the ECDSA MOCK
+             circuit (against the host MockProver, both timed) and on the
+             pairing k=19 MOCK circuit of phase 6 (timed), both satisfied;
+             each again with one advice value changed at a gated row (the
+             failure named at that column and row); the golden circuit with
+             a broken copy and a lookup value of 2^8 (both counted, equal to
+             the plain version on the CPU).
+9. gadgets - a Poseidon + SafeTypes circuit at k=9 (utils/testing.py
+             poseidon_logic: hash_fix_len_bytes of 32 bytes,
+             hash_var_len_bytes, a SafeBool and a SafeByte) through
+             base_test().bench_builder on the card: keygen, the pinned
+             prover builder, create_proof, verify_proof, a tampered proof
+             rejected; vk and proof bytes equal to poseidon_k9.npz.
 5. timing  - every kernel again, at the largest shapes the main path gave it
              (the ECDSA, k=15 and k=9 paths' shapes; g1_batch_mul at phase
              6's [16, 2^20] with setup(19)'s scalars, its plain version run
@@ -561,10 +587,16 @@ def main() -> None:
     from halo2_lib_tpu_torch.backend.kzg import COMMIT_SIMPLE_MAX
     from halo2_lib_tpu_torch.utils.curves import BN254_G1
     from halo2_lib_tpu_torch.utils.fields import FQ_BN254, FR_BN254
-    from halo2_lib_tpu_torch.utils.pinning import pinning_of
+    from halo2_lib_tpu_torch.backend.mock import MockProver
+    from halo2_lib_tpu_torch.backend.mock_device import DeviceMockProver
+    from halo2_lib_tpu_torch.backend.pipeline import Phase0Pipeline
+    from halo2_lib_tpu_torch.backend.precompile import warm_prover
+    from halo2_lib_tpu_torch.utils.pinning import Pinning, pinning_of
     from halo2_lib_tpu_torch.utils.testing import (
-        ecdsa_circuit, ecdsa_inputs, ecdsa_witness, golden_circuit, pairing_circuit,
-        pairing_inputs, pairing_witness, ram_circuit, rlc_circuit, rlc_prover, slice_circuit,
+        POSEIDON_K, POSEIDON_LOOKUP_BITS, base_test, check_proof, ecdsa_circuit, ecdsa_inputs,
+        ecdsa_witness, golden_circuit, golden_witness, pairing_circuit, pairing_inputs,
+        pairing_witness, poseidon_inputs, poseidon_logic, ram_circuit, rlc_circuit, rlc_prover,
+        slice_circuit,
     )
 
     dev = torch.device("cuda")
@@ -1073,6 +1105,7 @@ def main() -> None:
     t_ekeygen = time.time() - t
     t = time.time()
     pb = pinning_of(ebuilder).prover_builder()
+    erng_state = rng.getstate()  # phase 7 replays the prover witness from here
     ecdsa_witness(pb, ecdsa_inputs(), rng)
     t_epwit = time.time() - t
     t = time.time()
@@ -1190,7 +1223,9 @@ def main() -> None:
     t_pwit = time.time() - t
     pcp = pbuilder.config_params
     t = time.time()
-    ppk = keygen(params19, pbuilder, device=dev, timings=pkst)
+    pcirc = pbuilder.synthesize()  # kept for phase 8's device mock
+    pkst["synthesize"] = time.time() - t
+    ppk = keygen(params19, pbuilder, pcirc, device=dev, timings=pkst)
     torch.cuda.synchronize()
     t_pkeygen = time.time() - t
     t = time.time()
@@ -1321,6 +1356,193 @@ def main() -> None:
     del params19, back19, ppk
     torch.cuda.empty_cache()
     log(f"[pairing] phase 6 {time.time() - t6:.2f}s")
+
+    # --- 7. the bench path: ECDSA k=15 warm, plain and pipelined ------------------------------
+    # bench.py's e2e region (bench.py:122-160) on phase 4b's params, key and
+    # pinning: the pinned prover builder, then the witness and create_proof,
+    # or the phase-0 pipeline around the witness and create_proof with it.
+    # Every run replays the prover witness from the generator state phase 4b's
+    # started from, so every proof is the JAX digest's.
+    t7 = time.time()
+    t = time.time()
+    ntasks = warm_prover(params, epk, device=dev)
+    log(f"[bench] warm_prover: {ntasks} tasks in {time.time() - t:.3f}s (kernel library loaded, "
+        f"the pk's runtime cached since phase 4b)")
+    epin = pinning_of(ebuilder)
+
+    def bench_e2e(pipelined: bool):
+        """One e2e run: (proof, seconds, stage seconds, the pipeline's commit
+        groups or None)."""
+        r = random.Random()
+        r.setstate(erng_state)
+        st, groups = {}, None
+        torch.cuda.synchronize()
+        t0 = time.time()
+        pb = epin.prover_builder()
+        if pipelined:
+            pipe = Phase0Pipeline(params, epk, pb, device=dev).run(
+                lambda b: ecdsa_witness(b, ecdsa_inputs(), r))
+            st["witness + pipeline"] = time.time() - t0
+            proof = create_proof(params, epk, pb, seed=0, device=dev, timings=st, phase0=pipe)
+            groups = pipe.groups
+        else:
+            ecdsa_witness(pb, ecdsa_inputs(), r)
+            st["witness"] = time.time() - t0
+            proof = create_proof(params, epk, pb, seed=0, device=dev, timings=st)
+        return proof, time.time() - t0, st, groups
+
+    # plain and pipelined in turns
+    turns = ["plain", "pipelined", "pipelined", "plain"]
+    bench_runs, bench_proofs, launches_b = [], [], None
+    for i, label in enumerate(turns):
+        if i == 1:
+            reset_counts()
+        proof_b, secs, st, groups = bench_e2e(label == "pipelined")
+        if i == 1:
+            torch.cuda.synchronize()
+            launches_b = dict(cf.LAUNCHES)
+        bench_proofs.append(proof_b)
+        bench_runs.append({"run": label, "e2e_s": round(secs, 4),
+                           "stages_s": {k: round(v, 4) for k, v in st.items()},
+                           "commit_groups": groups})
+        log(f"[bench] {label}: e2e {secs:.3f}s (witness + create_proof, warm key); stages (s) "
+            + stage_line(st) + (f"; columns per commit call {groups}" if groups else ""))
+    if any(pb_ != bench_proofs[0] for pb_ in bench_proofs):
+        raise AssertionError("bench path: the plain and pipelined proofs differ")
+    bdigest = hashlib.sha256(bench_proofs[0]).hexdigest()
+    if bdigest != eref["proof_sha256"]:
+        raise AssertionError(f"bench path: proof sha256 {bdigest} != JAX {eref['proof_sha256']}")
+    if not verify_proof(params, epk.vk, bench_proofs[1]):
+        raise AssertionError("bench path: the pipelined proof does not verify")
+    if not tampered_rejected(params, epk.vk, bench_proofs[1]):
+        raise AssertionError("bench path: a tampered pipelined proof verifies")
+    log(f"[bench] {len(turns)} proofs byte-equal, sha256 == the JAX ECDSA digest; the pipelined "
+        f"proof verifies, a tampered copy is rejected")
+    log("[bench] the pipelined proof's launches: " + json.dumps(launches_b))
+    log(json.dumps({"bench_runs": bench_runs}))
+    # the pipelined ECDSA proof runs the ECDSA path's kernels, the commits of
+    # its advice columns on the pipeline's stream among them
+    never_b = (*off_path, "commit_dbl_add", "ntt_small", "g1_batch_mul")
+    missing_b = [k for k in cf.KERNELS if k not in never_b and launches_b[k] == 0]
+    if missing_b or any(launches_b[k] for k in never_b):
+        raise AssertionError(f"bench path launches {launches_b}: not launched {missing_b}, "
+                             f"want 0 of {never_b}")
+
+    # the k=9 golden circuit pipelined: its columns commit by commit_dbl_add
+    # on the pipeline's stream
+    gold9 = np.load(os.path.join(HERE, "tests", "data", "torch_goldens", "golden_k9.npz"))
+    reset_counts()
+    pipe9 = Phase0Pipeline(params9, pk9, Pinning(pk9.config_params, pk9.break_points)
+                           .prover_builder(), device=dev).run(golden_witness)
+    torch.cuda.synchronize()
+    dbl_add9 = cf.LAUNCHES["commit_dbl_add"]
+    proof9p = create_proof(params9, pk9, pipe9.builder, seed=0, device=dev, phase0=pipe9)
+    if proof9p != bytes(gold9["proof"]):
+        raise AssertionError("k=9 pipelined proof differs from the JAX golden")
+    if dbl_add9 != len(pipe9.groups) or dbl_add9 == 0:
+        raise AssertionError(f"k=9 pipeline: {dbl_add9} commit_dbl_add launches for commit "
+                             f"groups {pipe9.groups}")
+    log(f"[bench] k=9 golden circuit pipelined: proof == golden_k9.npz; columns per commit call "
+        f"{pipe9.groups}, one commit_dbl_add launch each on the pipeline's stream")
+    log(f"[bench] phase 7 {time.time() - t7:.2f}s")
+
+    # --- 8. the device MockProver -----------------------------------------------------------
+    # the ECDSA MOCK circuit (phase 4b), the pairing MOCK circuit (phase 6),
+    # each again with one advice value changed; a small circuit with a broken
+    # copy and an out-of-range lookup value
+    t8 = time.time()
+    reset_counts()
+    t = time.time()
+    ecirc = ebuilder.synthesize()
+    t_esyn = time.time() - t
+    t = time.time()
+    host_e = MockProver(ecirc, None).verify()
+    t_host_e = time.time() - t
+
+    def device_mock(circ):
+        torch.cuda.synchronize()
+        t0 = time.time()
+        errs = DeviceMockProver(circ, dev).verify()
+        torch.cuda.synchronize()
+        return errs, time.time() - t0
+
+    dev_e, t_dev_e = device_mock(ecirc)
+    if host_e or dev_e:
+        raise AssertionError(f"ECDSA mock: host {host_e[:3]}, device {dev_e[:3]} (want none)")
+    log(f"[mock] ECDSA k=15 ({sum(len(c) for c in ecirc.phases[0].columns)} advice cells, "
+        f"{len(ecirc.copies)} copies): host MockProver {t_host_e:.3f}s, DeviceMockProver "
+        f"{t_dev_e:.3f}s, both satisfied (synthesize {t_esyn:.3f}s)")
+    dev_p, t_dev_p = device_mock(pcirc)
+    if dev_p:
+        raise AssertionError(f"pairing mock: {dev_p[:3]} (want none)")
+    log(f"[mock] pairing k=19 ({sum(len(c) for c in pcirc.phases[0].columns)} advice cells, "
+        f"{len(pcirc.copies)} copies): DeviceMockProver {t_dev_p:.3f}s, satisfied")
+
+    def pranked(circ, name):
+        """One advice value changed at a row whose gate is on: the device
+        mock names that column and row."""
+        cols, sels = circ.phases[0].columns, circ.phases[0].selectors
+        c = len(sels) // 2
+        r = next(i for i, q in enumerate(sels[c]) if q and i >= len(sels[c]) // 2)
+        old = cols[c][r]
+        cols[c][r] = (old + 1) % FR_BN254.p
+        try:
+            errs, secs = device_mock(circ)
+        finally:
+            cols[c][r] = old
+        want = f"gate failure at phase 0 column {c} row {r}"
+        if want not in errs:
+            raise AssertionError(f"{name} pranked at column {c} row {r}: {errs}")
+        log(f"[mock] {name} with column {c} row {r} changed: {errs} ({secs:.3f}s)")
+
+    pranked(ecirc, "ECDSA")
+    pranked(pcirc, "pairing")
+    small = golden_circuit().synthesize()
+    small.copies.append((("advice", 0, 0, 0), ("advice", 0, 0, 1)))
+    small.lookup_cols[0][0][3] = 1 << small.params.lookup_bits
+    dev_s, _ = device_mock(small)
+    want_s = ["2 copy constraint failures", "1 lookup failures"]
+    if dev_s != want_s or DeviceMockProver(small, "cpu").verify() != want_s:
+        raise AssertionError(f"small circuit mock: {dev_s}, want {want_s}")
+    if not MockProver(small, None).verify():
+        raise AssertionError("small circuit: the host MockProver misses the failures")
+    torch.cuda.synchronize()
+    launches_m = dict(cf.LAUNCHES)
+    log(f"[mock] golden circuit with a broken copy and a lookup value of 2^8: {dev_s} "
+        f"(== the plain version on the CPU; the host MockProver fails it too)")
+    log("[mock] launches: " + json.dumps(launches_m))
+    if any(launches_m[k] == 0 for k in ("mont_mul", "field_add", "field_sub")):
+        raise AssertionError(f"device mock launches {launches_m}: the stencil's kernels missing")
+    del ecirc, pcirc, small
+    log(f"[mock] phase 8 {time.time() - t8:.2f}s")
+
+    # --- 9. gadgets: Poseidon + SafeTypes through base_test().bench_builder -------------------
+    t9g = time.time()
+    os.environ["PARAMS_DIR"] = os.path.join(HERE, "params")  # the committed k=9 SRS
+    pgold = np.load(os.path.join(HERE, "tests", "data", "torch_goldens", "poseidon_k9.npz"))
+    reset_counts()
+    tester = base_test().use_k(POSEIDON_K).use_lookup_bits(POSEIDON_LOOKUP_BITS).use_device(dev)
+    gst = {}
+    gproof = tester.bench_builder(poseidon_inputs(1), poseidon_inputs(2), poseidon_logic,
+                                  timings=gst)
+    torch.cuda.synchronize()
+    launches_g = dict(cf.LAUNCHES)
+    gvk = tester.pk.vk
+    if gvk.to_bytes() != bytes(pgold["vk"]) or gproof != bytes(pgold["proof"]):
+        raise AssertionError("Poseidon k=9: vk or proof bytes differ from the JAX golden")
+    bad = bytearray(gproof)
+    bad[len(bad) // 2] ^= 1
+    check_proof(tester.params, gvk, bytes(bad), expect_satisfied=False)
+    log(f"[gadgets] Poseidon + SafeTypes at k=9 ({gvk.num_advice} advice, {gvk.num_lookup} lookup "
+        f"columns): bench_builder's vk and proof == the JAX golden, verifies, tampered proof "
+        f"rejected; steps (s) " + stage_line(gst))
+    log("[gadgets] launches: " + json.dumps(launches_g))
+    never_g = (*off_path, "colntt", *pippenger, "g1_batch_mul")
+    missing_g = [k for k in cf.KERNELS if k not in never_g and launches_g[k] == 0]
+    if missing_g or any(launches_g[k] for k in never_g):
+        raise AssertionError(f"gadgets launches {launches_g}: not launched {missing_g}, "
+                             f"want 0 of {never_g}")
+    log(f"[gadgets] phase 9 {time.time() - t9g:.2f}s")
 
     # --- 5. every kernel at its main-path shapes: check and time ----------------------------
     def numel(shape) -> int:
@@ -1505,14 +1727,19 @@ def main() -> None:
             "source": f"halo2_lib_tpu_torch/{src}",
             "replaces": rep,
             # the main path's launches: the k=9, the two phase-3b k=9
-            # circuits', the k=15 slice and the ECDSA runs
+            # circuits', the k=15 slice, the ECDSA, the pairing, the
+            # pipelined ECDSA (phase 7), the device mock and the gadget runs
             "launches": (launches9[name] + launches_3b[name] + launches15[name] + launches_e[name]
-                         + launches_p[name]),
+                         + launches_p[name] + launches_b[name] + launches_m[name]
+                         + launches_g[name]),
             "launches_k9": launches9[name],
             "launches_k9_phases": launches_3b[name],
             "launches_k15": launches15[name],
             "launches_ecdsa": launches_e[name],
             "launches_pairing": launches_p[name],
+            "launches_bench_pipelined": launches_b[name],
+            "launches_mock": launches_m[name],
+            "launches_gadgets": launches_g[name],
             "max_abs_err": err,
             "ms": round(ms, 6),
             "plain_ms": round(plain_ms, 6),

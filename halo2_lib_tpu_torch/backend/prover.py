@@ -216,6 +216,15 @@ class ProverRuntime:
         }
 
 
+def runtime_for(params: ParamsKZG, pk: ProvingKey, device) -> ProverRuntime:
+    """The pk's cached ProverRuntime for (params, device), built if needed."""
+    rt: ProverRuntime = getattr(pk, "_runtime", None)
+    if rt is None or rt.params is not params or rt.device != device:
+        rt = ProverRuntime(params, pk, device)
+        pk._runtime = rt
+    return rt
+
+
 def _pad_coeff(coeff, n_ext):
     """[..., 16, n] coeffs -> zero-padded [..., 16, n_ext]."""
     return torch.nn.functional.pad(coeff, (0, n_ext - coeff.shape[-1]))
@@ -295,6 +304,7 @@ def create_proof(
     phase_fns: dict | None = None,
     device=None,
     timings: dict | None = None,
+    phase0=None,
 ) -> bytes:
     """Generate a proof on `device` (the CUDA card unless the caller asks for
     another). A `timings` dict receives the seconds of each stage.
@@ -303,6 +313,10 @@ def create_proof(
     closures for halo2-style challenge phases, called after the phase-(t-1)
     advice commitments with the challenges squeezed so far; they append the
     phase-t witnesses to the builder (requires a builder, not a circuit).
+
+    `phase0`: a finished backend/pipeline.py Phase0Pipeline, whose phase-0
+    advice columns were blinded, uploaded and committed while the witness
+    was generated (requires the builder it ran on).
     """
     device = resolve_device(device)
     vk = pk.vk
@@ -313,10 +327,19 @@ def create_proof(
     _t = _time.time()
 
     builder = None
-    if phase_fns:
-        assert isinstance(builder_or_circuit, BaseCircuitBuilder), "phase_fns require a builder"
+    if phase_fns or phase0 is not None:
+        assert isinstance(builder_or_circuit, BaseCircuitBuilder), (
+            "phase_fns/phase0 require a builder"
+        )
         builder = builder_or_circuit
         circuit = None
+        if phase0 is not None:
+            # the pipeline's columns and pre-drawn blinding are this proof's
+            # only if it ran on this builder with this seed and device
+            assert phase0.builder is builder, "phase0 ran on another builder"
+            assert phase0.seed == seed, f"phase0 drew its blinding for seed {phase0.seed}, not {seed}"
+            assert phase0.device == device, f"phase0 ran on device {phase0.device}, not {device}"
+            assert phase0.params is params, "phase0 committed with other params"
         if instances is None:
             instances = []
     elif isinstance(builder_or_circuit, BaseCircuitBuilder):
@@ -325,11 +348,9 @@ def create_proof(
         circuit = builder_or_circuit
     if instances is None:
         instances = circuit.instances
+    _t = stage_end("synthesize", _t, device, timings)
 
-    rt: ProverRuntime = getattr(pk, "_runtime", None)
-    if rt is None or rt.params is not params or rt.device != device:
-        rt = ProverRuntime(params, pk, device)
-        pk._runtime = rt
+    rt = runtime_for(params, pk, device)
     _t = stage_end("runtime", _t, device, timings)
     dom, df = rt.dom, rt.df
     ntt, coset = dom.ntt(device), dom.coset_ntt(device)
@@ -413,15 +434,30 @@ def create_proof(
     for t in range(nphases):
         if t > 0 and phase_fns and phase_fns.get(t) is not None:
             phase_fns[t](builder, list(challenges))
-        adv_t, lk_t = _phase_cols(t)
-        adv_t = [_blind(col, n, rng) for col in adv_t]
-        lk_t = [_blind(col, n, rng) for col in lk_t]
+        if t == 0 and phase0 is not None:
+            # the phase-0 advice was blinded, uploaded and committed during
+            # witness generation (backend/pipeline.py): skip its blinding
+            # draws so the rng stream stays the plain prover's, then handle
+            # the lookup-advice and instance columns here
+            adv_t = phase0.advice_cols
+            for _ in range(len(adv_t) * BLINDING_FACTORS):
+                rng.randrange(P)
+            lk_t = [_blind(col, n, rng) for col in _flatten_lookup_cols(builder, 0, nl_p[0])]
+            rest = _lag_from_u16(df, _u16_cols(lk_t + instance_vals, n), device)
+            lag_t = torch.cat([phase0.advice_lag(), rest], dim=0)
+            com1 = torch.cat(
+                [phase0.commits(), params.commit_columns(df, rest[: len(lk_t)], T["lagA"])]
+            )
+        else:
+            adv_t, lk_t = _phase_cols(t)
+            adv_t = [_blind(col, n, rng) for col in adv_t]
+            lk_t = [_blind(col, n, rng) for col in lk_t]
+            cols = adv_t + lk_t + (instance_vals if t == 0 else [])
+            lag_t = _lag_from_u16(df, _u16_cols(cols, n), device)
+            com1 = params.commit_columns(df, lag_t[: len(adv_t) + len(lk_t)], T["lagA"])
         advice_vals.extend(adv_t)
         lookup_vals.extend(lk_t)
         ncommit = len(adv_t) + len(lk_t)
-        cols = adv_t + lk_t + (instance_vals if t == 0 else [])
-        lag_t = _lag_from_u16(df, _u16_cols(cols, n), device)
-        com1 = params.commit_columns(df, lag_t[:ncommit], T["lagA"])
         for pt in host_points(com1):
             tr.write_point(pt)
         if t == 0:

@@ -69,6 +69,7 @@ import os
 import shutil
 import subprocess
 import tempfile
+import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
 
@@ -104,18 +105,23 @@ KERNELS = (
 # every kernel at the shapes the main path gave it)
 LAUNCHES: dict[str, int] = {k: 0 for k in KERNELS}
 LARGEST: dict[str, tuple] = {}
+# the phase-0 pipeline (backend/pipeline.py) launches from a worker thread
+# beside the caller's: the counts are updated under one lock
+_COUNT_LOCK = threading.Lock()
 
 
 def reset_launches() -> None:
-    for k in KERNELS:
-        LAUNCHES[k] = 0
-    LARGEST.clear()
+    with _COUNT_LOCK:
+        for k in KERNELS:
+            LAUNCHES[k] = 0
+        LARGEST.clear()
 
 
 def _count(name: str, work: int, shapes: tuple) -> None:
-    LAUNCHES[name] += 1
-    if work > LARGEST.get(name, (0,))[0]:
-        LARGEST[name] = (work, shapes)
+    with _COUNT_LOCK:
+        LAUNCHES[name] += 1
+        if work > LARGEST.get(name, (0,))[0]:
+            LARGEST[name] = (work, shapes)
 
 
 # --- build and load -------------------------------------------------------------
@@ -129,6 +135,7 @@ NVCC_FLAGS = [
 ]
 
 _LIB = None
+_LOAD_LOCK = threading.Lock()
 
 
 def _nvcc() -> str:
@@ -187,7 +194,11 @@ def build(verbose: bool = False) -> str:
 
 def _lib():
     global _LIB
-    if _LIB is None:
+    if _LIB is not None:
+        return _LIB
+    with _LOAD_LOCK:
+        if _LIB is not None:
+            return _LIB
         lib = ctypes.CDLL(build())
         P, I64, I = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
         binary = [I, P, I64, I64, P, I64, I64, P, I64, I64, P]

@@ -1,6 +1,11 @@
-"""Circuits that drive the port end to end (tests and chip_smoke.py).
+"""Test harness and the circuits that drive the port end to end.
 
-`tests/data/torch_goldens/make_goldens.py` builds the same circuits with the
+`base_test()` is the builder pattern of halo2-base/src/utils/testing.rs:
+run a closure against a fresh circuit builder and check it with MockProver,
+or take it through keygen, the pinned prover builder, create_proof and
+verify_proof (`bench_builder`).
+
+`tests/data/torch_goldens/make_goldens.py` builds the circuits below with the
 JAX package's eDSL (the ECDSA one with `bench.py`'s helpers, which the
 functions below follow step for step); the port's proofs of them must be
 byte-identical to the goldens that script writes.
@@ -9,8 +14,10 @@ byte-identical to the goldens that script writes.
 from __future__ import annotations
 
 import random
+import time as _time
 
 from ..backend.challenges import mock_challenge
+from ..backend.mock import MockProver
 from ..core.cells import Constant, Existing
 from ..core.dyn_lookup import BasicDynLookupManager
 from ..ecc.ec import EccChip
@@ -20,11 +27,143 @@ from ..ecc.fp import FpChip
 from ..ecc.pairing import PairingChip
 from ..gates.circuit import BaseCircuitBuilder, CircuitBuilderStage
 from ..gates.flex_gate import GateChip
+from ..poseidon import PoseidonChip
+from ..poseidon.spec import default_spec
+from ..safe_types import SafeTypeChip
 from . import bn254_pairing
 from .curves import BN254_G1, BN254_G2, SECP256K1
-from .fields import FQ_BN254, FR_BN254
+from .fields import FQ_BN254, FR_BN254, PrimeField
+from .pinning import pinning_of
 
 GOLDEN_K = 9
+
+
+class BaseTester:
+    """halo2-base's BaseTester (utils/testing.rs:105-247): `run`, `run_gate`
+    and `run_builder` check a closure's circuit with the host MockProver;
+    `bench_builder` proves it on `device` (the CUDA card unless the caller
+    asks for another) and keeps the last key and SRS as `pk` and `params`."""
+
+    def __init__(self):
+        self.k = 10
+        self.lookup_bits: int | None = None
+        self.expect_satisfied = True
+        self.num_instance_columns = 0
+        self.field: PrimeField = FR_BN254
+        self.device = None
+        self.params = None
+        self.pk = None
+
+    def use_k(self, k: int) -> "BaseTester":
+        self.k = k
+        return self
+
+    def use_lookup_bits(self, lookup_bits: int) -> "BaseTester":
+        self.lookup_bits = lookup_bits
+        return self
+
+    def use_field(self, field: PrimeField) -> "BaseTester":
+        self.field = field
+        return self
+
+    def use_device(self, device) -> "BaseTester":
+        self.device = device
+        return self
+
+    def expect(self, satisfied: bool) -> "BaseTester":
+        self.expect_satisfied = satisfied
+        return self
+
+    def run(self, f):
+        """f(ctx, range_chip) -> optional result; mock-proves the circuit."""
+        return self.run_builder(lambda pool, range_chip: f(pool.main(), range_chip))
+
+    def run_gate(self, f):
+        """f(ctx, gate_chip) -> optional result."""
+        gate = GateChip(self.field)
+        return self.run_builder(lambda pool, _range: f(pool.main(), gate))
+
+    def run_builder(self, f):
+        builder = BaseCircuitBuilder.from_stage(CircuitBuilderStage.MOCK, self.field).use_k(self.k)
+        if self.lookup_bits is not None:
+            builder.set_lookup_bits(self.lookup_bits)
+        builder.set_instance_columns(self.num_instance_columns)
+        range_chip = builder.range_chip() if self.lookup_bits is not None else None
+        res = f(builder.pool(0), range_chip)
+
+        builder.calculate_params(minimum_rows=9)
+        errors = MockProver.run(self.k, builder).verify()
+        if self.expect_satisfied:
+            assert not errors, "circuit not satisfied:\n" + "\n".join(errors[:8])
+        else:
+            assert errors, "expected circuit to fail but it was satisfied"
+        return res
+
+    def bench_builder(self, init_input, logic_input, f, timings: dict | None = None) -> bytes:
+        """keygen with init_input, then prove and verify with logic_input
+        (BaseTester::bench_builder, utils/testing.rs:198-247): the keygen
+        builder and calculate_params, the SRS, the pinned prover builder
+        re-running f, create_proof, verify_proof. Returns the proof bytes;
+        `timings` receives the seconds of each step."""
+        from ..backend.keygen import keygen
+        from ..backend.kzg import gen_srs
+        from ..backend.prover import create_proof
+        from ..backend.verifier import verify_proof
+        from .device import resolve_device, stage_end
+
+        device = resolve_device(self.device)
+        t = _time.time()
+
+        builder = BaseCircuitBuilder.from_stage(CircuitBuilderStage.MOCK, self.field).use_k(self.k)
+        if self.lookup_bits is not None:
+            builder.set_lookup_bits(self.lookup_bits)
+        range_chip = builder.range_chip() if self.lookup_bits is not None else None
+        f(builder.pool(0), range_chip, init_input)
+        builder.calculate_params(minimum_rows=9)
+        # the real prover needs dedicated lookup columns (no q_lookup path)
+        p = builder.config_params
+        if p.num_advice_per_phase:
+            p.num_advice_per_phase[0] = max(p.num_advice_per_phase[0], 2)
+        if self.lookup_bits is not None and p.num_lookup_advice_per_phase:
+            p.num_lookup_advice_per_phase[0] = max(p.num_lookup_advice_per_phase[0], 1)
+        t = stage_end("keygen witness", t, device, timings)
+        self.params = gen_srs(self.k, device=device)
+        t = stage_end("srs", t, device, timings)
+        self.pk = keygen(self.params, builder, device=device)
+        t = stage_end("keygen", t, device, timings)
+        prover_builder = pinning_of(builder).prover_builder(self.field)
+        prover_range = prover_builder.range_chip() if self.lookup_bits is not None else None
+        f(prover_builder.pool(0), prover_range, logic_input)
+        t = stage_end("prover witness", t, device, timings)
+        proof = create_proof(self.params, self.pk, prover_builder, device=device)
+        t = stage_end("create_proof", t, device, timings)
+        assert verify_proof(self.params, self.pk.vk, proof), "proof verification failed"
+        t = stage_end("verify_proof", t, device, timings)
+        return proof
+
+
+def gen_proof(params, pk, builder_or_circuit, instances=None, device=None) -> bytes:
+    """Prove with a seeded transcript (utils/testing.rs:54-60)."""
+    from ..backend.prover import create_proof
+
+    return create_proof(params, pk, builder_or_circuit, instances, device=device)
+
+
+def check_proof(params, vk, proof: bytes, instances=None, expect_satisfied: bool = True) -> None:
+    """Verify and assert the expected outcome (utils/testing.rs:64-88)."""
+    from ..backend.verifier import VerificationError, verify_proof
+
+    try:
+        ok = verify_proof(params, vk, proof, instances)
+    except (VerificationError, ValueError):
+        ok = False
+    assert ok == expect_satisfied, (
+        "proof verified but expected failure" if ok else "proof failed verification"
+    )
+
+
+def base_test() -> BaseTester:
+    return BaseTester()
 
 
 def golden_circuit(x_val: int = 12345, k: int = GOLDEN_K) -> BaseCircuitBuilder:
@@ -32,6 +171,16 @@ def golden_circuit(x_val: int = 12345, k: int = GOLDEN_K) -> BaseCircuitBuilder:
     columns and 1 lookup column (the k=9 prover test circuit)."""
     builder = BaseCircuitBuilder.from_stage(CircuitBuilderStage.MOCK).use_k(k)
     builder.set_lookup_bits(8)
+    golden_witness(builder, x_val)
+    builder.calculate_params(minimum_rows=9)
+    p = builder.config_params
+    p.num_advice_per_phase[0] = max(p.num_advice_per_phase[0], 2)
+    p.num_lookup_advice_per_phase[0] = max(p.num_lookup_advice_per_phase[0], 1)
+    return builder
+
+
+def golden_witness(builder: BaseCircuitBuilder, x_val: int = 12345) -> BaseCircuitBuilder:
+    """golden_circuit's witnesses on a MOCK or (pinned) PROVER builder."""
     rc = builder.range_chip()
     gate = rc.gate
     ctx = builder.main(0)
@@ -42,10 +191,6 @@ def golden_circuit(x_val: int = 12345, k: int = GOLDEN_K) -> BaseCircuitBuilder:
         z = gate.mul_add(ctx, Existing(z), Existing(x), Constant(3))
     rc.range_check(ctx, z, 240)
     rc.check_less_than(ctx, Existing(x), Constant(1 << 40), 48)
-    builder.calculate_params(minimum_rows=9)
-    p = builder.config_params
-    p.num_advice_per_phase[0] = max(p.num_advice_per_phase[0], 2)
-    p.num_lookup_advice_per_phase[0] = max(p.num_lookup_advice_per_phase[0], 1)
     return builder
 
 
@@ -242,3 +387,36 @@ def pairing_circuit(stage: CircuitBuilderStage = CircuitBuilderStage.MOCK) -> Ba
     pairing_witness(builder, pairing_inputs())
     builder.calculate_params(minimum_rows=9)
     return builder
+
+
+# the Poseidon + SafeTypes circuit: a fixed-length hash of 32 bytes, a
+# variable-length hash of POSEIDON_VAR_LEN bytes at most, a SafeBool and a
+# SafeByte, at k = 9 with 8 lookup bits (the SafeByte range checks)
+POSEIDON_K, POSEIDON_LOOKUP_BITS, POSEIDON_VAR_LEN = 9, 8, 8
+
+
+def poseidon_inputs(seed: int):
+    """(32 bytes, POSEIDON_VAR_LEN bytes, their length, a bool, a byte) from
+    random.Random(seed); the bytes past the length are zero."""
+    rng = random.Random(seed)
+    fixed = [rng.randrange(256) for _ in range(32)]
+    length = rng.randrange(1, POSEIDON_VAR_LEN + 1)
+    var = [rng.randrange(256) for _ in range(length)] + [0] * (POSEIDON_VAR_LEN - length)
+    return fixed, var, length, bool(rng.randrange(2)), rng.randrange(256)
+
+
+def poseidon_logic(pool, range_chip, inputs):
+    """bench_builder's closure for the Poseidon + SafeTypes circuit: the
+    PoseidonChip's hash_fix_len_bytes and hash_var_len_bytes of the inputs'
+    bytes and a SafeBool / SafeByte load. Returns the two hashes' cells."""
+    fixed, var, length, flag, byte = inputs
+    ctx = pool.main()
+    chip = PoseidonChip(ctx, default_spec(), range_chip)
+    safe = SafeTypeChip(range_chip)
+    fx = safe.raw_to_fix_len_bytes(ctx, [ctx.load_witness(b) for b in fixed])
+    h_fix = chip.hash_fix_len_bytes(ctx, fx)
+    vb = safe.raw_to_var_len_bytes(ctx, [ctx.load_witness(b) for b in var], ctx.load_witness(length))
+    h_var = chip.hash_var_len_bytes(ctx, vb)
+    safe.load_bool(ctx, flag)
+    safe.load_byte(ctx, byte)
+    return h_fix, h_var

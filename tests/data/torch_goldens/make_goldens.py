@@ -47,6 +47,14 @@ itself,
   seed-0 proof (keygen builder, pinned prover builder, create_proof),
   written after each stage with what is known so far. A full-size run:
   hours of CPU.
+* ``poseidon_k9.npz`` (with ``--poseidon``, which freezes this and nothing
+  else): the keys of ``golden_k9.npz`` for the k=9 Poseidon + SafeTypes
+  circuit (``poseidon_circuit`` below: a fixed-length hash of 32 bytes, a
+  variable-length hash, a SafeBool and a SafeByte), keygen on
+  ``poseidon_inputs(1)``, the seed-0 proof of the pinned prover builder on
+  ``poseidon_inputs(2)``, as ``base_test().bench_builder`` runs them, and
+  ``circuit_sha256``, the digest of the keygen builder's synthesized
+  circuit (``circuit_digest``).
 
 Run from the repository root:
 
@@ -54,6 +62,7 @@ Run from the repository root:
     JAX_PLATFORMS=cpu python tests/data/torch_goldens/make_goldens.py --phases
     JAX_PLATFORMS=cpu python tests/data/torch_goldens/make_goldens.py --large
     JAX_PLATFORMS=cpu python tests/data/torch_goldens/make_goldens.py --pairing
+    JAX_PLATFORMS=cpu python tests/data/torch_goldens/make_goldens.py --poseidon
 
 The circuits are built here with the JAX eDSL, step for step as the port's
 ``utils/testing.py`` builds them with its own copy (the ECDSA circuit with
@@ -733,10 +742,10 @@ def limbs16(cols, n: int) -> np.ndarray:
     return out
 
 
-def freeze(name: str, builder, instances, params, prover=None) -> None:
+def freeze(name: str, builder, instances, params, prover=None, extra=None) -> None:
     """Keygen on `builder`, then the seed-0 proof: of `builder` itself, or,
     with `prover(pk, break_points) -> (prover builder, phase_fns)`, of the
-    builder and phase closures it returns."""
+    builder and phase closures it returns. `extra` adds arrays to the file."""
     t = time.time()
     pk = keygen(params, builder)
     if prover is None:
@@ -762,8 +771,81 @@ def freeze(name: str, builder, instances, params, prover=None) -> None:
         d["table_col"] = limbs16([pk.table_col], n)[0]
     if pk.q_lookup_col is not None:
         d["q_lookup_col"] = limbs16([pk.q_lookup_col], n)[0]
+    d.update(extra or {})
     np.savez_compressed(os.path.join(HERE, f"{name}.npz"), **d)
     print(f"{name}: proof {len(proof)} bytes, {time.time() - t:.1f}s", flush=True)
+
+
+POSEIDON_K, POSEIDON_LOOKUP_BITS, POSEIDON_VAR_LEN = 9, 8, 8
+
+
+def poseidon_inputs(seed: int):
+    """(32 bytes, POSEIDON_VAR_LEN bytes, their length, a bool, a byte) from
+    random.Random(seed); the bytes past the length are zero."""
+    rng = random.Random(seed)
+    fixed = [rng.randrange(256) for _ in range(32)]
+    length = rng.randrange(1, POSEIDON_VAR_LEN + 1)
+    var = [rng.randrange(256) for _ in range(length)] + [0] * (POSEIDON_VAR_LEN - length)
+    return fixed, var, length, bool(rng.randrange(2)), rng.randrange(256)
+
+
+def poseidon_logic(pool, range_chip, inputs):
+    """The Poseidon + SafeTypes closure: hash_fix_len_bytes and
+    hash_var_len_bytes of the inputs' bytes, a SafeBool and a SafeByte load."""
+    from halo2_lib_tpu.poseidon import PoseidonChip
+    from halo2_lib_tpu.poseidon.spec import default_spec
+    from halo2_lib_tpu.safe_types import SafeTypeChip
+
+    fixed, var, length, flag, byte = inputs
+    ctx = pool.main()
+    chip = PoseidonChip(ctx, default_spec(), range_chip)
+    safe = SafeTypeChip(range_chip)
+    fx = safe.raw_to_fix_len_bytes(ctx, [ctx.load_witness(b) for b in fixed])
+    h_fix = chip.hash_fix_len_bytes(ctx, fx)
+    vb = safe.raw_to_var_len_bytes(ctx, [ctx.load_witness(b) for b in var], ctx.load_witness(length))
+    h_var = chip.hash_var_len_bytes(ctx, vb)
+    safe.load_bool(ctx, flag)
+    safe.load_byte(ctx, byte)
+    return h_fix, h_var
+
+
+def poseidon_circuit(inputs):
+    """The keygen builder of base_test().use_k(9).use_lookup_bits(8)
+    .bench_builder (utils/testing.py) on `inputs`."""
+    builder = BaseCircuitBuilder.from_stage(CircuitBuilderStage.MOCK).use_k(POSEIDON_K)
+    builder.set_lookup_bits(POSEIDON_LOOKUP_BITS)
+    poseidon_logic(builder.pool(0), builder.range_chip(), inputs)
+    builder.calculate_params(minimum_rows=9)
+    p = builder.config_params
+    p.num_advice_per_phase[0] = max(p.num_advice_per_phase[0], 2)
+    p.num_lookup_advice_per_phase[0] = max(p.num_lookup_advice_per_phase[0], 1)
+    return builder
+
+
+def circuit_digest(circuit) -> str:
+    """SHA-256 of a synthesized circuit's advice columns and selectors,
+    lookup-advice and fixed columns, copies and instances, as Python reprs."""
+    h = hashlib.sha256()
+    for part in ([fp.columns for fp in circuit.phases], [fp.selectors for fp in circuit.phases],
+                 circuit.lookup_cols, circuit.fixed_cols, circuit.copies, circuit.instances):
+        h.update(repr(part).encode())
+    return h.hexdigest()
+
+
+def freeze_poseidon() -> None:
+    from halo2_lib_tpu.utils.pinning import pinning_of
+
+    params9 = ParamsKZG.read(os.path.join(ROOT, "params", "kzg_bn254_9.srs"))
+    builder = poseidon_circuit(poseidon_inputs(1))
+    digest = circuit_digest(builder.synthesize())
+
+    def prover(pk, break_points):
+        pb = pinning_of(builder).prover_builder()
+        poseidon_logic(pb.pool(0), pb.range_chip(), poseidon_inputs(2))
+        return pb, None
+
+    freeze("poseidon_k9", builder, None, params9, prover,
+           {"circuit_sha256": np.frombuffer(bytes.fromhex(digest), dtype=np.uint8)})
 
 
 def main() -> None:
@@ -772,6 +854,9 @@ def main() -> None:
         return
     if "--pairing" in sys.argv:
         freeze_pairing()
+        return
+    if "--poseidon" in sys.argv:
+        freeze_poseidon()
         return
     if "--phases" in sys.argv:
         params9 = ParamsKZG.read(os.path.join(ROOT, "params", "kzg_bn254_9.srs"))

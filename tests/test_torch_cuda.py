@@ -404,3 +404,59 @@ def test_setup_on_the_card_reproduces_the_committed_srs(dev):
     with open(os.path.join(root, "params", "kzg_bn254_9.srs"), "rb") as f:
         want = f.read()
     assert ParamsKZG.setup(9, device=dev).to_halo2_bytes() == want
+
+
+def test_pipelined_k9_proof_on_a_side_stream(dev):
+    """prove_pipelined of the golden circuit on the card: its columns commit
+    on the pipeline's second CUDA stream (commit_dbl_add at k=9) while the
+    witness runs; the proof is golden_k9.npz's bytes, as the plain one is."""
+    import os
+
+    import numpy as np
+
+    from halo2_lib_tpu_torch.backend.keygen import keygen
+    from halo2_lib_tpu_torch.backend.kzg import ParamsKZG
+    from halo2_lib_tpu_torch.backend.pipeline import Phase0Pipeline
+    from halo2_lib_tpu_torch.backend.prover import create_proof
+    from halo2_lib_tpu_torch.utils.pinning import pinning_of
+    from halo2_lib_tpu_torch.utils.testing import golden_circuit, golden_witness
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    gold = np.load(os.path.join(root, "tests", "data", "torch_goldens", "golden_k9.npz"))
+    params = ParamsKZG.read(os.path.join(root, "params", "kzg_bn254_9.srs"), device=dev)
+    builder = golden_circuit()
+    pk = keygen(params, builder, device=dev)
+    pinning = pinning_of(builder)
+    cf.reset_launches()
+    pipe = Phase0Pipeline(params, pk, pinning.prover_builder(), device=dev)
+    assert pipe._side is not None and pipe._side != torch.cuda.current_stream(dev)
+    pipe.run(golden_witness)
+    assert cf.LAUNCHES["commit_dbl_add"] == len(pipe.groups) >= 1
+    proof = create_proof(params, pk, pipe.builder, device=dev, phase0=pipe)
+    assert proof == bytes(gold["proof"])
+
+
+@pytest.mark.parametrize("prank", [False, True])
+def test_device_mock_stencil_on_the_card(dev, prank):
+    """The device mock's gate stencil (mont_mul, field_add, field_sub on the
+    card) against its plain version on the same columns, and the verdicts
+    on the card and the CPU equal."""
+    from halo2_lib_tpu_torch.backend.mock_device import DeviceMockProver, gate_residual
+    from halo2_lib_tpu_torch.core.cells import Existing
+    from halo2_lib_tpu_torch.utils.testing import golden_circuit
+
+    builder = golden_circuit()
+    if prank:
+        ctx = builder.main(0)
+        x = ctx.load_witness(5)
+        builder.range_chip().gate.mul(ctx, Existing(x), Existing(x)).debug_prank(ctx, 7)
+    circuit = builder.synthesize()
+    table, _, ngate, _ = DeviceMockProver(circuit, dev)._columns()
+    df = DeviceField(FR_BN254)
+    cf.reset_launches()
+    got = gate_residual(df, table[:ngate])
+    assert all(cf.LAUNCHES[k] == 1 for k in ("mont_mul", "field_add", "field_sub"))
+    assert torch.equal(got.cpu(), gate_residual(df, table[:ngate].cpu()))
+    errors = DeviceMockProver(circuit, dev).verify()
+    assert errors == DeviceMockProver(circuit, "cpu").verify()
+    assert bool(errors) == prank

@@ -48,6 +48,17 @@ def test_srs_and_pairing_modules_are_walked():
         assert rel in walked, rel
 
 
+def test_pipeline_mock_and_gadget_modules_are_walked():
+    """The pipeline, the device mock, the warm-up, SafeTypes and Poseidon are
+    among the files the import check walks (the jax-free run below loads
+    each of them too)."""
+    walked = {os.path.relpath(f, PORT) for f in _port_files()}
+    for rel in ("backend/pipeline.py", "backend/mock_device.py", "backend/precompile.py",
+                "safe_types.py", "poseidon/__init__.py", "poseidon/primitives.py",
+                "poseidon/spec.py", "poseidon/state.py", "poseidon/hasher.py", "poseidon/chip.py"):
+        assert rel in walked, rel
+
+
 def test_k8_prove_without_jax(tmp_path_factory):
     """keygen -> create_proof -> verify_proof with jax, the JAX package and
     the native engine unimportable (the instance-column circuit at k=9,

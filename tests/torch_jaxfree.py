@@ -32,6 +32,11 @@ from halo2_lib_tpu_torch.backend.prover import create_proof
 from halo2_lib_tpu_torch.backend.verifier import verify_proof
 from halo2_lib_tpu_torch.utils.fields import FR_BN254
 from halo2_lib_tpu_torch.utils.testing import instance_circuit
+# every module of the port, loaded with the others unimportable
+import halo2_lib_tpu_torch.backend.mock_device, halo2_lib_tpu_torch.backend.pipeline
+import halo2_lib_tpu_torch.backend.precompile, halo2_lib_tpu_torch.poseidon
+import halo2_lib_tpu_torch.safe_types, halo2_lib_tpu_torch as h2
+exports = [getattr(h2, name) for name in ("base_test", "keygen", "create_proof", "verify_proof")]
 
 params = ParamsKZG.read(ROOT + "/params/kzg_bn254_9.srs", device="cpu")
 builder, inst = instance_circuit()
