@@ -1,10 +1,12 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port (halo2_lib_tpu_torch) once on one NVIDIA card.
 
-    python3 chip_smoke.py [--ptxas]
+    python3 chip_smoke.py [--ptxas] [--mesh-only]
 
-(--ptxas prints each kernel's registers and spills from nvcc.) Phases, each
-printing its own lines; any failure raises and exits non-zero:
+(--ptxas prints each kernel's registers and spills from nvcc; --mesh-only
+builds the kernels and runs phase 10 alone, over every visible card: the
+multi-card check.) Phases, each printing its own lines; any failure raises
+and exits non-zero:
 
 1. build   - compile the CUDA kernels from halo2_lib_tpu_torch/csrc (nvcc).
 2. kernels - every kernel against its plain PyTorch version on the card, at a
@@ -124,6 +126,20 @@ printing its own lines; any failure raises and exits non-zero:
              base_test().bench_builder on the card: keygen, the pinned
              prover builder, create_proof, verify_proof, a tampered proof
              rejected; vk and proof bytes equal to poseidon_k9.npz.
+10. mesh   - (after 9, before 5) multi-device proving (parallel/): over the
+             visible cards, or on one card a virtual mesh of its shards
+             (printed): ShardedNTT at 2^15 and 2^17, forward, inverse and
+             both coset forms, bit-equal to new_ntt / CosetNTT; sharded_msm
+             of 2^15 SRS points equal to the single-device commit;
+             create_proof(mesh=) of the golden (4 shards), RLC (2) and RAM
+             (8) k=9 circuits byte-equal to their JAX goldens, and of the
+             ECDSA k=15 circuit (4 shards, twice: runtime cold, then cached)
+             with the JAX SHA-256, verifying, a flipped byte rejected; each
+             mesh proof's stage seconds beside a single-device proof's; then
+             a world of one (the HALO2_DIST_* triple, NCCL) whose
+             make_global_mesh drives sharded_msm. The counts are reset just
+             before each mesh proof and summed just after: the kernel rows'
+             `launches_mesh`, ec_add (the shards' fold) among them.
 5. timing  - every kernel again, at the largest shapes the main path gave it
              (the ECDSA, k=15 and k=9 paths' shapes; g1_batch_mul at phase
              6's [16, 2^20] with setup(19)'s scalars, its plain version run
@@ -560,6 +576,257 @@ def ntt_input_limbs(log_n: int, np, cols: int = 2):
     return np.ascontiguousarray(limbs.transpose(0, 2, 1)).astype(np.int32)
 
 
+def mesh_shards(torch, dev, S: int):
+    """A mesh of S shards over the visible cards (shard s on card
+    s * cards // S: one a card when there are S), or, on one card, a virtual
+    mesh of S shards on it. Returns (mesh, description)."""
+    from halo2_lib_tpu_torch.parallel.sharded import Mesh, make_mesh
+
+    cards = torch.cuda.device_count()
+    if cards >= S:
+        return make_mesh(S), f"{S} cards"
+    if cards > 1:
+        devs = [torch.device("cuda", s * cards // S) for s in range(S)]
+        return Mesh(devs, ("dp",)), f"{S} shards over {cards} cards"
+    mesh = make_mesh(S, device=dev)
+    return mesh, f"a virtual mesh of {S} shards on {mesh.devices[0]}"
+
+
+def mesh_phase(torch, np, dev, keys=None):
+    """Phase 10 (see the module docstring): the sharded NTT and MSM against
+    the single-device ones, the k=9 golden, RLC and RAM circuits and the
+    ECDSA k=15 circuit proved over meshes (stage seconds beside the
+    single-device proof's), and a world-of-one process group driving the
+    sharded MSM. keys: phases 3, 3b and 4b's (params9, pk9, {circuit: (pk,
+    keygen builder)}, params15, epk, ebuilder, erng_state), or None to make
+    them here. Returns the mesh proofs' launches and largest launches."""
+    import torch.distributed as dist
+
+    from halo2_lib_tpu_torch.backend.keygen import keygen
+    from halo2_lib_tpu_torch.backend.kzg import ParamsKZG, host_points
+    from halo2_lib_tpu_torch.backend.precompile import warm_prover
+    from halo2_lib_tpu_torch.backend.prover import create_proof
+    from halo2_lib_tpu_torch.backend.verifier import verify_proof
+    from halo2_lib_tpu_torch.ops import cuda_field as cf
+    from halo2_lib_tpu_torch.ops.limbs import DeviceField
+    from halo2_lib_tpu_torch.ops.ntt import CosetNTT, new_ntt
+    from halo2_lib_tpu_torch.parallel import sharded_msm
+    from halo2_lib_tpu_torch.parallel.distributed import init_distributed, make_global_mesh
+    from halo2_lib_tpu_torch.parallel.sharded import ShardedNTT
+    from halo2_lib_tpu_torch.utils.fields import FR_BN254
+    from halo2_lib_tpu_torch.utils.pinning import pinning_of
+    from halo2_lib_tpu_torch.utils.testing import (
+        ecdsa_circuit, ecdsa_inputs, ecdsa_witness, golden_circuit, ram_circuit, rlc_circuit,
+        rlc_prover,
+    )
+
+    t10 = time.time()
+    fr = DeviceField(FR_BN254)
+    goldens = os.path.join(HERE, "tests", "data", "torch_goldens")
+    with open(os.path.join(goldens, "ecdsa_k15.json")) as f:
+        eref = json.load(f)
+    if keys is None:
+        params9 = ParamsKZG.read(os.path.join(HERE, "params", "kzg_bn254_9.srs"), device=dev)
+        pk9 = keygen(params9, golden_circuit(), device=dev)
+        keys3b = {}
+        for cname, make in (("multiphase", rlc_circuit), ("dynlookup", ram_circuit)):
+            b = make()
+            keys3b[cname] = (keygen(params9, b, device=dev), b)
+        params15 = ParamsKZG.read(os.path.join(HERE, "params", "kzg_bn254_15.srs"), device=dev)
+        rng = random.Random(0x5EC0)
+        ebuilder = ecdsa_circuit(15, 14, rng=rng)
+        epk = keygen(params15, ebuilder, device=dev)
+        erng_state = rng.getstate()
+    else:
+        params9, pk9, keys3b, params15, epk, ebuilder, erng_state = keys
+    mesh4, desc4 = mesh_shards(torch, dev, 4)
+    log(f"[mesh] meshes over {torch.cuda.device_count()} visible card(s): 4 shards as {desc4}")
+
+    def sync():
+        for i in range(torch.cuda.device_count()):
+            torch.cuda.synchronize(i)
+
+    # the sharded four-step NTT against the single-device transforms
+    gen = torch.Generator(device="cuda").manual_seed(10)
+    for k in (15, 17):
+        x = rand_limbs(gen, (2, 16, 1 << k), torch, FR_BN254.p)
+        single, coset = new_ntt(fr, k, dev), CosetNTT(fr, k, 7, dev)
+        sn, sc = ShardedNTT(fr, k, mesh4), ShardedNTT(fr, k, mesh4, shift=7)
+        for label, got, want in (("forward", sn.forward(x), single.forward(x)),
+                                 ("inverse", sn.inverse(x), single.inverse(x)),
+                                 ("coset forward", sc.forward(x), coset.forward(x)),
+                                 ("coset inverse", sc.inverse(x), coset.inverse(x))):
+            if not torch.equal(got, want):
+                raise AssertionError(f"ShardedNTT 2^{k} {label} differs from the single-device one")
+        sync()
+        t = time.time()
+        sn.forward(x)
+        sync()
+        ms_mesh = 1e3 * (time.time() - t)
+        t = time.time()
+        single.forward(x)
+        sync()
+        log(f"[mesh] ShardedNTT 2^{k} (4 shards): forward, inverse, coset forward and inverse "
+            f"bit-equal to new_ntt / CosetNTT; 2 columns forward {ms_mesh:.3f} ms, single device "
+            f"{1e3 * (time.time() - t):.3f} ms (host clock)")
+
+    # the sharded MSM at 2^15 points against the single-device commit
+    n15 = params15.n
+    srng = random.Random(15)
+    scalars = [srng.randrange(FR_BN254.p) for _ in range(n15)]
+    points = params15.g
+    dc = params15.device_curve()
+    t = time.time()
+    got = sharded_msm(dc, points, scalars, mesh4)
+    sync()
+    t_sh = time.time() - t
+    t = time.time()
+    want = host_points(params15.commit_columns(fr, fr.pack(scalars, device=dev)[None],
+                                               params15.affine_bases(dev)))[0]
+    t_single = time.time() - t
+    if got != want:
+        raise AssertionError("sharded_msm at 2^15 points differs from the single-device commit")
+    log(f"[mesh] sharded_msm of 2^15 SRS points (4 shards) == the single-device commit; "
+        f"{t_sh:.3f}s with the host packing of the points, single-device commit {t_single:.3f}s")
+
+    # create_proof over meshes: every proof against the JAX bytes, stage
+    # seconds beside a single-device proof's (the counts reset just before
+    # each mesh proof and read just after)
+    launches = {k: 0 for k in cf.KERNELS}
+    largest: dict = {}
+    stages = []
+
+    def mesh_prove(label, S, prove, check, single=True):
+        """One mesh proof, checked, after a single-device one (unless
+        `single` is False: that proof would replace the key's mesh runtime)."""
+        mesh, desc = mesh_shards(torch, dev, S)
+        st1, stm, t1 = {}, {}, None
+        if single:
+            sync()
+            t = time.time()
+            check(prove(None, st1))
+            sync()
+            t1 = time.time() - t
+        sync()
+        cf.reset_launches()
+        t = time.time()
+        proof = prove(mesh, stm)
+        sync()
+        tm = time.time() - t
+        for k in cf.KERNELS:
+            launches[k] += cf.LAUNCHES[k]
+        for k, v in cf.LARGEST.items():
+            if v[0] > largest.get(k, (0,))[0]:
+                largest[k] = v
+        check(proof)
+        stages.append({"circuit": label, "shards": desc, "single_s": t1 and round(t1, 4),
+                       "mesh_s": round(tm, 4), "single_stages_s": {k: round(v, 4) for k, v in st1.items()},
+                       "mesh_stages_s": {k: round(v, 4) for k, v in stm.items()}})
+        log(f"[mesh] {label} over {desc}: bytes equal the JAX golden; create_proof {tm:.3f}s "
+            f"(single device {'not run' if t1 is None else f'{t1:.3f}s'}); stages (s) mesh "
+            f"{json.dumps(stages[-1]['mesh_stages_s'])}, "
+            f"single {json.dumps(stages[-1]['single_stages_s'])}")
+        return proof
+
+    def equal_to(npz):
+        gold = np.load(os.path.join(goldens, npz))
+
+        def check(proof):
+            if proof != bytes(gold["proof"]):
+                raise AssertionError(f"mesh proof differs from {npz}")
+        return check
+
+    def golden_prove(mesh, st):
+        return create_proof(params9, pk9, golden_circuit(), seed=0, device=dev if mesh is None else None,
+                            timings=st, mesh=mesh)
+
+    def rlc_prove(mesh, st):
+        pk, b = keys3b["multiphase"]
+        pb, phase_fns = rlc_prover(pk, b.break_points())
+        return create_proof(params9, pk, pb, seed=0, phase_fns=phase_fns,
+                            device=dev if mesh is None else None, timings=st, mesh=mesh)
+
+    def ram_prove(mesh, st):
+        pk, _ = keys3b["dynlookup"]
+        return create_proof(params9, pk, ram_circuit(), seed=0, device=dev if mesh is None else None,
+                            timings=st, mesh=mesh)
+
+    epin = pinning_of(ebuilder)
+
+    def ecdsa_prove(mesh, st):
+        r = random.Random()
+        r.setstate(erng_state)
+        pb = epin.prover_builder()
+        ecdsa_witness(pb, ecdsa_inputs(), r)
+        return create_proof(params15, epk, pb, seed=0, device=dev if mesh is None else None,
+                            timings=st, mesh=mesh)
+
+    def ecdsa_check(proof):
+        if hashlib.sha256(proof).hexdigest() != eref["proof_sha256"]:
+            raise AssertionError("ECDSA mesh proof sha256 differs from the JAX digest")
+
+    mesh_prove("golden k=9", 4, golden_prove, equal_to("golden_k9.npz"))
+    mesh_prove("RLC k=9 (phase_fns)", 2, rlc_prove, equal_to("multiphase_k9.npz"))
+    mesh_prove("RAM k=9 (dynamic lookup)", 8, ram_prove, equal_to("dynlookup_k9.npz"))
+    eproof = mesh_prove("ECDSA k=15", 4, ecdsa_prove, ecdsa_check)
+    # the warm-up over the mesh keeps the runtime that proof built; the
+    # ECDSA mesh proof again, its runtime cached on the key
+    rt = epk._runtime
+    t = time.time()
+    ntasks = warm_prover(params15, epk, mesh=mesh4)
+    if epk._runtime is not rt:
+        raise AssertionError("warm_prover(mesh=) rebuilt the mesh runtime")
+    log(f"[mesh] warm_prover(mesh=): {ntasks} tasks in {time.time() - t:.3f}s on the cached "
+        f"mesh runtime")
+    mesh_prove("ECDSA k=15, mesh runtime cached", 4, ecdsa_prove, ecdsa_check, single=False)
+    if not verify_proof(params15, epk.vk, eproof):
+        raise AssertionError("ECDSA mesh proof does not verify")
+    bad = bytearray(eproof)
+    bad[len(bad) // 2] ^= 1
+    if verify_proof(params15, epk.vk, bytes(bad)):
+        raise AssertionError("ECDSA mesh proof: a flipped byte verifies")
+    log("[mesh] ECDSA k=15 mesh proof: sha256 == the JAX digest, verifies, a flipped byte is "
+        "rejected")
+    log("[mesh] the mesh proofs' launches: " + json.dumps(launches))
+    for k in ("ec_add", "commit_dbl_add", "bucket_sums_fused", "ntt_small", "mont_mul"):
+        if launches[k] == 0:
+            raise AssertionError(f"mesh proofs: no {k} launch")
+
+    # a world of one: init_distributed over NCCL, make_global_mesh driving
+    # the sharded MSM
+    env = {"HALO2_DIST_COORD": f"127.0.0.1:{free_port()}", "HALO2_DIST_NPROCS": "1",
+           "HALO2_DIST_PROCID": "0"}
+    os.environ.update(env)
+    try:
+        if not init_distributed():
+            raise AssertionError("init_distributed did not join with the env triple set")
+        backend = dist.get_backend()
+        gmesh = make_global_mesh()
+        got = sharded_msm(dc, points[:4096], scalars[:4096], gmesh)
+        want = host_points(params15.commit_columns(fr, fr.pack(scalars[:4096], device=dev)[None],
+                                                   params15.affine_bases(dev)))[0]
+        if got != want:
+            raise AssertionError("make_global_mesh's sharded_msm differs from the single commit")
+        log(f"[mesh] world of one over {backend}: make_global_mesh {gmesh} drove sharded_msm of "
+            f"4096 points == the single-device commit")
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+        for k in env:
+            os.environ.pop(k, None)
+    log(json.dumps({"mesh_runs": stages}))
+    log(f"[mesh] phase 10 {time.time() - t10:.2f}s")
+    return launches, largest
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
 def main() -> None:
     t_start = time.time()
     import torch
@@ -609,6 +876,11 @@ def main() -> None:
     t = time.time()
     cf.build(verbose="--ptxas" in sys.argv)
     log(f"[build] kernels built in {time.time() - t:.2f}s; load {cf.load():.3f}s")
+    if "--mesh-only" in sys.argv:
+        # phase 10 alone, over every visible card (the multi-card check)
+        mesh_phase(torch, np, dev)
+        log(f"[total] chip_smoke.py --mesh-only {time.time() - t_start:.1f}s")
+        return
 
     # --- kernel calls on given inputs (kernel and plain) -------------------------
     def make_inputs(name: str, spec):
@@ -1003,12 +1275,14 @@ def main() -> None:
 
     # --- 3b. the multi-phase and dynamic-lookup k=9 circuits --------------------------------
     launches_3b = {k: 0 for k in cf.KERNELS}
+    keys3b = {}  # phase 10 proves both again over meshes
     for cname in ("multiphase", "dynlookup"):
         t = time.time()
         gold = np.load(os.path.join(HERE, "tests", "data", "torch_goldens", f"{cname}_k9.npz"))
         reset_counts()
         builder = rlc_circuit() if cname == "multiphase" else ram_circuit()
         pk3 = keygen(params9, builder, device=dev)
+        keys3b[cname] = (pk3, builder)
         if cname == "multiphase":
             # phase 1 is witnessed from the challenge create_proof squeezes
             pb, phase_fns = rlc_prover(pk3, builder.break_points())
@@ -1544,6 +1818,10 @@ def main() -> None:
                              f"want 0 of {never_g}")
     log(f"[gadgets] phase 9 {time.time() - t9g:.2f}s")
 
+    # --- 10. mesh: the sharded NTT, MSM and create_proof(mesh=) -------------------------------
+    launches_mesh, largest_mesh = mesh_phase(
+        torch, np, dev, (params9, pk9, keys3b, params, epk, ebuilder, erng_state))
+
     # --- 5. every kernel at its main-path shapes: check and time ----------------------------
     def numel(shape) -> int:
         out = 1
@@ -1675,7 +1953,7 @@ def main() -> None:
         # the kernels off the main path are timed at the shapes it gave them
         # before their fusion
         spec = (largest_e.get(name) or largest15.get(name) or largest9.get(name)
-                or largest_p.get(name) or OFF_PATH_SHAPES[name])[1]
+                or largest_p.get(name) or largest_mesh.get(name) or OFF_PATH_SHAPES[name])[1]
         if name == "colntt":
             # the NTT's stage twiddles start at the Montgomery one
             fid, args = make_inputs(name, spec)
@@ -1728,10 +2006,11 @@ def main() -> None:
             "replaces": rep,
             # the main path's launches: the k=9, the two phase-3b k=9
             # circuits', the k=15 slice, the ECDSA, the pairing, the
-            # pipelined ECDSA (phase 7), the device mock and the gadget runs
+            # pipelined ECDSA (phase 7), the device mock, the gadget runs
+            # and the mesh proofs (phase 10)
             "launches": (launches9[name] + launches_3b[name] + launches15[name] + launches_e[name]
                          + launches_p[name] + launches_b[name] + launches_m[name]
-                         + launches_g[name]),
+                         + launches_g[name] + launches_mesh[name]),
             "launches_k9": launches9[name],
             "launches_k9_phases": launches_3b[name],
             "launches_k15": launches15[name],
@@ -1740,6 +2019,7 @@ def main() -> None:
             "launches_bench_pipelined": launches_b[name],
             "launches_mock": launches_m[name],
             "launches_gadgets": launches_g[name],
+            "launches_mesh": launches_mesh[name],
             "max_abs_err": err,
             "ms": round(ms, 6),
             "plain_ms": round(plain_ms, 6),

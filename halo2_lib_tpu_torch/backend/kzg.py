@@ -407,8 +407,7 @@ class ParamsKZG:
         key = (lagrange, str(device))
         b = self._bases.get(key)
         if b is None:
-            xy = self._raw_xy[int(lagrange)]  # [n, 2, 16] Montgomery limbs
-            b = tuple(to_device(xy[:, c, :].T, device) for c in (0, 1))
+            b = self.affine_slice(lagrange, 0, self.n, device)
             self._bases[key] = b
         return b
 
@@ -419,6 +418,12 @@ class ParamsKZG:
     def affine_lagrange_bases(self, device=None):
         """(Ax, Ay) Lagrange bases for msm_many_device."""
         return self._affine(True, device)
+
+    def affine_slice(self, lagrange: bool, start: int, stop: int, device) -> tuple:
+        """(Ax, Ay) of bases [start, stop), uploaded to `device` (not cached:
+        a mesh shard's slice)."""
+        xy = self._raw_xy[int(lagrange), start:stop]  # [m, 2, 16] Montgomery limbs
+        return tuple(to_device(xy[:, c, :].T, device) for c in (0, 1))
 
     # --- commitments -------------------------------------------------------------------
     def commit_columns(self, fr_df: DeviceField, vals_mont, bases, window_bits: int | None = None):

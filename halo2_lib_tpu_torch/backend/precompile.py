@@ -11,6 +11,10 @@ coset NTT both ways, the u16 upload conversion, a commit on each basis and
 the batch inversion. That puts the library, the twiddle and coset tables,
 the SRS bases and the runtime on the card before the first proof.
 
+With a mesh (``warm_prover(..., mesh=...)``, parallel/sharded.py) the
+warm-up builds the pk's mesh runtime, its tables sharded on their rows, and
+runs the same tasks through the sharded NTT, upload and commit.
+
 Usage: ``maybe_warm(params, pk)`` before the first proof when the
 environment sets HALO2_PRECOMPILE=1, or ``warm_prover`` directly.
 """
@@ -24,49 +28,51 @@ import torch
 
 from ..ops import cuda_field as cf
 from ..ops.limbs import N_LIMBS
+from ..parallel.sharded import shard_devices
 from ..utils.device import resolve_device
-from .prover import _lag_from_u16, runtime_for
+from .prover import runtime_for
 
 
-def warm_prover(params, pk, device=None, max_workers: int | None = None) -> int:
+def warm_prover(params, pk, device=None, max_workers: int | None = None, mesh=None) -> int:
     """Load the kernels and run each of the prover's shared device tasks once
     for (params, pk) on `device` (the CUDA card unless the caller asks for
-    another). The tasks run in order on the caller's thread: with no
-    per-shape compile to overlap, threads would only serialize the same
-    launches, so `max_workers` (the JAX signature's) is accepted and unused.
-    Returns the number of tasks run; repeating a call is cheap."""
-    device = resolve_device(device)
-    if device.type == "cuda":
+    another), or over `mesh` (its runtime built and cached on the pk, as
+    create_proof(mesh=...) uses it). The tasks run in order on the caller's
+    thread: with no per-shape compile to overlap, threads would only
+    serialize the same launches, so `max_workers` (the JAX signature's) is
+    accepted and unused. Returns the number of tasks run; repeating a call
+    is cheap."""
+    devices = (resolve_device(device),) if mesh is None else tuple(dict.fromkeys(shard_devices(mesh)))
+    if any(d.type == "cuda" for d in devices):
         cf.load()
     with torch.inference_mode():
-        rt = runtime_for(params, pk, device)
-        dom, df, n = rt.dom, rt.df, rt.n
-        ntt, coset = dom.ntt(device), dom.coset_ntt(device)
-        zeros = lambda m: torch.zeros((1, N_LIMBS, m), dtype=torch.int32, device=device)
-        zn, ze = zeros(n), zeros(dom.n_ext)
+        rt = runtime_for(params, pk, devices[0], mesh)
+        L, n, n_ext = rt.layout, rt.n, rt.dom.n_ext
+        zn, ze = L.zeros(1, n), L.zeros(1, n_ext)
 
     tasks = [
-        lambda: ntt.forward_cols(zn),
-        lambda: ntt.inverse_cols(zn),
-        lambda: coset.forward_cols(ze),
-        lambda: coset.inverse_cols(ze),
-        lambda: _lag_from_u16(df, np.zeros((1, n, N_LIMBS), np.uint16), device),
-        lambda: params.commit_columns(df, zn, rt.tables["lagA"]),
-        lambda: params.commit_columns(df, zn, rt.tables["monoA"]),
-        lambda: df._batch_inv(zeros(n)),
+        lambda: rt.ntt.forward_cols(zn),
+        lambda: rt.ntt.inverse_cols(zn),
+        lambda: rt.coset.forward_cols(ze),
+        lambda: rt.coset.inverse_cols(ze),
+        lambda: L.upload(rt.df, np.zeros((1, n, N_LIMBS), np.uint16)),
+        lambda: rt.commit(zn, "lagA"),
+        lambda: rt.commit(zn, "monoA"),
+        lambda: rt.fd._batch_inv(zn),
     ]
 
     with torch.inference_mode():
         for task in tasks:
             task()
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
+    for d in devices:
+        if d.type == "cuda":
+            torch.cuda.synchronize(d)
     return len(tasks)
 
 
-def maybe_warm(params, pk, device=None) -> bool:
+def maybe_warm(params, pk, device=None, mesh=None) -> bool:
     """Environment-gated entry: warms iff HALO2_PRECOMPILE=1."""
     if os.environ.get("HALO2_PRECOMPILE") != "1":
         return False
-    warm_prover(params, pk, device)
+    warm_prover(params, pk, device, None, mesh)
     return True

@@ -13,6 +13,15 @@ Per-proving-key device state (fixed/sigma/selector/table columns in
 Lagrange, coefficient and extended-coset form) is computed once and cached
 on the ProvingKey (`_runtime`).
 
+Over a mesh (``create_proof(mesh=...)``, parallel/sharded.py ``make_mesh``)
+every column tensor is sharded on its row axis, as the JAX prover's
+``_row_sharder`` shards it, and each stage runs per shard on the shard's
+device; where rows mix it takes the explicit cross-shard forms of
+parallel/rows.py (``RowLayout``): the sharded MSM per commit, the sharded
+four-step NTT, the grand products' scan with a carry across shards, the
+rotations' halos, the evaluations' partial sums. The proof is the
+single-device proof's bytes.
+
 Protocol phases (mirrored by verifier.py):
   vk hash + instances -> advice commitments -> theta -> lookup permuted
   commitments -> beta, gamma -> permutation + lookup Z commitments -> random
@@ -28,12 +37,14 @@ import numpy as np
 import torch
 
 from ..gates.circuit import BaseCircuitBuilder, PhysicalCircuit
-from ..ops.limbs import N_LIMBS, ints_to_limbs, limbs_to_ints, to_device
+from ..ops.limbs import N_LIMBS, ints_to_limbs, limbs_to_ints
+from ..parallel.rows import RowLayout, Rows, lag_from_u16 as _lag_from_u16
+from ..parallel.sharded import ShardedNTT, sharded_commit, shard_devices
 from ..utils.device import resolve_device, stage_end
 from ..utils.fields import FR_BN254
 from .keygen import BLINDING_FACTORS, DELTA, ProvingKey
 from .kzg import ParamsKZG, host_points
-from .poly import domain as get_domain
+from .poly import COSET_SHIFT, domain as get_domain
 from .protocol import (
     P,
     compress_host,
@@ -131,23 +142,23 @@ def _u16_cols(cols: list[list[int]], n: int) -> np.ndarray:
     return ints_to_limbs(flat).astype(np.uint16).reshape(len(cols), n, N_LIMBS)
 
 
-def _lag_from_u16(df, cols_u16: np.ndarray, device) -> torch.Tensor:
-    """uint16[C, n, 16] host columns -> int32[C, 16, n] Montgomery-Lagrange
-    on `device` (one upload, one to_mont launch)."""
-    C, n, _ = cols_u16.shape
-    if C == 0:
-        return torch.zeros((0, N_LIMBS, n), dtype=torch.int32, device=device)
-    return df._to_mont(to_device(cols_u16, device).transpose(1, 2))
-
-
 class ProverRuntime:
     """Per-(params, pk) device state: the pk's tables in Lagrange,
-    coefficient and extended-coset form, and the domain constants."""
+    coefficient and extended-coset form, and the domain constants, on
+    `device`, or sharded on their rows over `mesh` (its first shard's device
+    is then `device`), with the NTTs and the commit of that layout."""
 
-    def __init__(self, params: ParamsKZG, pk: ProvingKey, device):
+    def __init__(self, params: ParamsKZG, pk: ProvingKey, device, mesh=None):
         self.params = params
         self.pk = pk
-        self.device = device
+        self.mesh = mesh
+        if mesh is None:
+            self.layout = RowLayout(device)
+        else:
+            devs = shard_devices(mesh)
+            self.layout = RowLayout(devs[0], devs)
+        self.device = device = self.layout.device
+        L = self.layout
         vk = pk.vk
         self.vk = vk
         self.k = vk.k
@@ -155,7 +166,14 @@ class ProverRuntime:
         self.u = usable_row_count(self.n)
         self.dom = get_domain(vk.k)
         self.df = self.dom.df
+        # the field's ring operations over this layout's tensors
+        self.fd = L.field(self.df)
         n, u, dom, df = self.n, self.u, self.dom, self.df
+        if mesh is None:
+            self.ntt, self.coset = dom.ntt(device), dom.coset_ntt(device)
+        else:
+            self.ntt = ShardedNTT(df, vk.k, mesh)
+            self.coset = ShardedNTT(df, dom.k_ext, mesh, shift=COSET_SHIFT)
         ncols = len(vk.perm_columns)
         self.nchunks = len(perm_chunks(ncols))
 
@@ -195,10 +213,10 @@ class ProverRuntime:
                 stacked.append(_pad(c, n))
         for ci in range(ncols):
             self._tbl_index[f"sigma{ci}"] = len(stacked) + ci
-        lag_cols = _lag_from_u16(df, _u16_cols(stacked, n), device)
-        self.tbl_lag = torch.cat([lag_cols, pk.perm_values.to(device)], dim=0)
-        self.tbl_coeff = dom.ntt(device).inverse_cols(self.tbl_lag)
-        self.tbl_ext = dom.coset_ntt(device).forward_cols(_pad_coeff(self.tbl_coeff, dom.n_ext))
+        lag_cols = L.upload(df, _u16_cols(stacked, n))
+        self.tbl_lag = L.cat([lag_cols, L.shard(pk.perm_values)])
+        self.tbl_coeff = self.ntt.inverse_cols(self.tbl_lag)
+        self.tbl_ext = self.coset.forward_cols(L.pad(self.tbl_coeff, dom.n_ext))
 
         tix = self._tbl_index
         self.tables = {
@@ -209,59 +227,61 @@ class ProverRuntime:
             "llast_e": self.tbl_ext[tix["llast"]],
             "lact_e": self.tbl_ext[tix["lact"]],
             "x_poly_e": self.tbl_ext[tix["xpoly"]],
-            "omega": dom.omega_pows_dev(device),
-            "zh_inv": dom.zh_inv_ext(device),
-            "lagA": params.affine_lagrange_bases(device),
-            "monoA": params.affine_bases(device),
+            "omega": L.shard(dom.omega_pows_dev(device)),
+            "zh_inv": L.shard(dom.zh_inv_ext(device)),
+            "lagA": self._bases(True),
+            "monoA": self._bases(False),
         }
 
+    def _bases(self, lagrange: bool):
+        """The SRS's affine bases (Lagrange or monomial) on the device, or
+        each shard's slice of them on its device."""
+        L, params = self.layout, self.params
+        if not L.sharded:
+            return (params.affine_lagrange_bases if lagrange else params.affine_bases)(self.device)
+        m = self.n // L.nshards
+        return [params.affine_slice(lagrange, s * m, (s + 1) * m, d) for s, d in enumerate(L.devices)]
 
-def runtime_for(params: ParamsKZG, pk: ProvingKey, device) -> ProverRuntime:
-    """The pk's cached ProverRuntime for (params, device), built if needed."""
+    def commit(self, cols, basis: str):
+        """[C, 16, m] columns of the layout -> int32[C, 33] commitments on
+        the device, against the Lagrange ("lagA") or monomial ("monoA")
+        bases: one commit_columns call, or the sharded MSM over the mesh."""
+        if isinstance(cols, Rows):
+            return sharded_commit(self.params.device_curve(), self.df, cols, self.tables[basis])
+        return self.params.commit_columns(self.df, cols, self.tables[basis])
+
+
+def runtime_for(params: ParamsKZG, pk: ProvingKey, device, mesh=None) -> ProverRuntime:
+    """The pk's cached ProverRuntime for (params, device) or (params, mesh),
+    built if needed."""
     rt: ProverRuntime = getattr(pk, "_runtime", None)
-    if rt is None or rt.params is not params or rt.device != device:
-        rt = ProverRuntime(params, pk, device)
+    if rt is None or rt.params is not params or rt.mesh != mesh or rt.device != device:
+        rt = ProverRuntime(params, pk, device, mesh)
         pk._runtime = rt
     return rt
 
 
-def _pad_coeff(coeff, n_ext):
-    """[..., 16, n] coeffs -> zero-padded [..., 16, n_ext]."""
-    return torch.nn.functional.pad(coeff, (0, n_ext - coeff.shape[-1]))
-
-
-def _tree_sum(df, stack):
-    """Field sum along axis 0 of [m, ..., 16, B] (log-depth)."""
+def _tree_sum(df, stack, cat=torch.cat):
+    """Field sum along axis 0 of [m, ..., 16, B] (log-depth); `cat` joins
+    along axis 0 (RowLayout.cat for Rows)."""
     s = stack
     while s.shape[0] > 1:
         half = s.shape[0] // 2
         red = df._add(s[:half], s[half : 2 * half])
         if s.shape[0] % 2:
-            red = torch.cat([df._add(red[:1], s[-1:]), red[1:]], dim=0)
+            red = cat([df._add(red[:1], s[-1:]), red[1:]], dim=0)
         s = red
     return s[0]
 
 
-def _tree_sum_lanes(df, t):
-    """Field sum along the lane axis of [..., 16, B] -> [..., 16, 1]."""
-    s = t
-    while s.shape[-1] > 1:
-        half = s.shape[-1] // 2
-        red = df._add(s[..., :half], s[..., half : 2 * half])
-        if s.shape[-1] % 2:
-            red = torch.cat([df._add(red[..., :1], s[..., -1:]), red[..., 1:]], dim=-1)
-        s = red
-    return s
-
-
-def _tree_prod(df, stack):
+def _tree_prod(df, stack, cat=torch.cat):
     """Field product along axis 0 of [m, ..., 16, B] (log-depth)."""
     s = stack
     while s.shape[0] > 1:
         half = s.shape[0] // 2
         red = df._mont_mul(s[:half], s[half : 2 * half])
         if s.shape[0] % 2:
-            red = torch.cat([df._mont_mul(red[:1], s[-1:]), red[1:]], dim=0)
+            red = cat([df._mont_mul(red[:1], s[-1:]), red[1:]], dim=0)
         s = red
     return s[0]
 
@@ -305,6 +325,7 @@ def create_proof(
     device=None,
     timings: dict | None = None,
     phase0=None,
+    mesh=None,
 ) -> bytes:
     """Generate a proof on `device` (the CUDA card unless the caller asks for
     another). A `timings` dict receives the seconds of each stage.
@@ -317,8 +338,23 @@ def create_proof(
     `phase0`: a finished backend/pipeline.py Phase0Pipeline, whose phase-0
     advice columns were blinded, uploaded and committed while the witness
     was generated (requires the builder it ran on).
+
+    `mesh`: a one-process parallel/sharded.py Mesh (``make_mesh``): the
+    columns are sharded on their rows over its shards and every stage runs
+    per shard (see the module docstring); the same proof bytes. Not with
+    `phase0`; `device`, if given, must be the mesh's first shard's.
     """
-    device = resolve_device(device)
+    if mesh is None:
+        device = resolve_device(device)
+        sync = (device,)  # the devices a stage's end waits for
+    else:
+        if phase0 is not None:
+            raise ValueError("phase0 pipelines one device's commits: it does not run over a mesh")
+        devs = shard_devices(mesh)
+        if device is not None and resolve_device(device) != devs[0]:
+            raise ValueError(f"device {device} is not the mesh's first shard {devs[0]}")
+        device = devs[0]
+        sync = tuple(dict.fromkeys(devs))
     vk = pk.vk
     k = vk.k
     n = 1 << k
@@ -348,12 +384,13 @@ def create_proof(
         circuit = builder_or_circuit
     if instances is None:
         instances = circuit.instances
-    _t = stage_end("synthesize", _t, device, timings)
+    _t = stage_end("synthesize", _t, sync, timings)
 
-    rt = runtime_for(params, pk, device)
-    _t = stage_end("runtime", _t, device, timings)
-    dom, df = rt.dom, rt.df
-    ntt, coset = dom.ntt(device), dom.coset_ntt(device)
+    rt = runtime_for(params, pk, device, mesh)
+    _t = stage_end("runtime", _t, sync, timings)
+    L = rt.layout
+    dom, df = rt.dom, rt.fd
+    ntt, coset = rt.ntt, rt.coset
     na, nl, ncols = vk.num_advice, vk.num_lookup, len(vk.perm_columns)
     nchunks = rt.nchunks
     na_p = vk.num_advice_per_phase or [na]
@@ -443,18 +480,16 @@ def create_proof(
             for _ in range(len(adv_t) * BLINDING_FACTORS):
                 rng.randrange(P)
             lk_t = [_blind(col, n, rng) for col in _flatten_lookup_cols(builder, 0, nl_p[0])]
-            rest = _lag_from_u16(df, _u16_cols(lk_t + instance_vals, n), device)
+            rest = L.upload(df, _u16_cols(lk_t + instance_vals, n))
             lag_t = torch.cat([phase0.advice_lag(), rest], dim=0)
-            com1 = torch.cat(
-                [phase0.commits(), params.commit_columns(df, rest[: len(lk_t)], T["lagA"])]
-            )
+            com1 = torch.cat([phase0.commits(), rt.commit(rest[: len(lk_t)], "lagA")])
         else:
             adv_t, lk_t = _phase_cols(t)
             adv_t = [_blind(col, n, rng) for col in adv_t]
             lk_t = [_blind(col, n, rng) for col in lk_t]
             cols = adv_t + lk_t + (instance_vals if t == 0 else [])
-            lag_t = _lag_from_u16(df, _u16_cols(cols, n), device)
-            com1 = params.commit_columns(df, lag_t[: len(adv_t) + len(lk_t)], T["lagA"])
+            lag_t = L.upload(df, _u16_cols(cols, n))
+            com1 = rt.commit(lag_t[: len(adv_t) + len(lk_t)], "lagA")
         advice_vals.extend(adv_t)
         lookup_vals.extend(lk_t)
         ncommit = len(adv_t) + len(lk_t)
@@ -466,9 +501,9 @@ def create_proof(
         if t < nphases - 1:
             challenges.append(tr.squeeze_challenge())
 
-    empty = torch.zeros((0, N_LIMBS, n), dtype=torch.int32, device=device)
-    adv_lag = torch.cat([a for a, _ in phase_lags], dim=0) if phase_lags else empty
-    lk_lag = torch.cat([lb for _, lb in phase_lags], dim=0) if phase_lags else empty
+    empty = L.zeros(0, n)
+    adv_lag = L.cat([a for a, _ in phase_lags]) if phase_lags else empty
+    lk_lag = L.cat([lb for _, lb in phase_lags]) if phase_lags else empty
 
     # dynamic-lookup dedicated advice columns (committed after phase advice)
     dyn_vals: list[list[int]] = []
@@ -482,12 +517,12 @@ def create_proof(
                 dyn_vals.append(_blind(col, n, rng))
     assert len(dyn_vals) == nd, "dyn lookup columns don't match the proving key"
     if nd:
-        dyn_lag = _lag_from_u16(df, _u16_cols(dyn_vals, n), device)
-        for pt in host_points(params.commit_columns(df, dyn_lag, T["lagA"])):
+        dyn_lag = L.upload(df, _u16_cols(dyn_vals, n))
+        for pt in host_points(rt.commit(dyn_lag, "lagA")):
             tr.write_point(pt)
     else:
         dyn_lag = empty
-    _t = stage_end("advice commits", _t, device, timings)
+    _t = stage_end("advice commits", _t, sync, timings)
 
     theta = tr.squeeze_challenge()  # lookup input/table compression
 
@@ -515,10 +550,10 @@ def create_proof(
         s_comp = compress_host([_host_col(lb) for lb in tbl_labels], theta, u)
         a_p, s_p = _permute_pair(a_comp, s_comp, u, n, rng)
         permuted_host.extend([a_p, s_p])
-    permuted_lag = _lag_from_u16(df, _u16_cols(permuted_host, n), device)
-    for pt in host_points(params.commit_columns(df, permuted_lag, T["lagA"])):
+    permuted_lag = L.upload(df, _u16_cols(permuted_host, n))
+    for pt in host_points(rt.commit(permuted_lag, "lagA")):
         tr.write_point(pt)
-    _t = stage_end("lookup permuted", _t, device, timings)
+    _t = stage_end("lookup permuted", _t, sync, timings)
 
     beta = tr.squeeze_challenge()
     gamma = tr.squeeze_challenge()
@@ -530,8 +565,9 @@ def create_proof(
     # scal layout: [theta, beta, gamma, beta*delta^0, ...]
     scal = dom.pack([theta, beta, gamma] + beta_deltas, device)
     zb = _lag_from_u16(df, _u16_cols(zblind, n - u - 1), device)
-    rand_lag = _lag_from_u16(df, _u16_cols([random_lag_vals], n), device)
-    row_lt_u = torch.arange(n, device=device) < u
+    rand_lag = L.upload(df, _u16_cols([random_lag_vals], n))
+    row_lt_u = L.rows_below(n, u)
+    one = df.one_mont((1,), device)  # [16, 1], broadcast over the rows
     tix = rt._tbl_index
     beta_c = scal[:, 1:2]
     gamma_c = scal[:, 2:3]
@@ -541,7 +577,7 @@ def create_proof(
         # order: fixed, advice, lookup, instance, dyn)
         parts = []
         if vk.num_fixed:
-            parts.append(torch.stack([T["lag"][tix[f"fix{i}"]] for i in range(vk.num_fixed)]))
+            parts.append(L.stack([T["lag"][tix[f"fix{i}"]] for i in range(vk.num_fixed)]))
         if na:
             parts.append(adv_lag)
         if nl:
@@ -550,7 +586,7 @@ def create_proof(
             parts.append(inst_lag)
         if nd:
             parts.append(dyn_lag)
-        return torch.cat(parts, dim=0) if parts else empty
+        return L.cat(parts) if parts else empty
 
     def _compressed_stacks(get_tensor, theta_t, shape_tail):
         """Per-instance theta-compressed (input, table) tensors [ninst, ...]."""
@@ -572,43 +608,41 @@ def create_proof(
             a_list.append(fold(srcs_in))
             s_list.append(fold(srcs_tbl))
         if not a_list:
-            z = torch.zeros((0, N_LIMBS) + shape_tail, dtype=torch.int32, device=device)
+            z = L.zeros(0, shape_tail[-1])
             return z, z
-        return torch.stack(a_list), torch.stack(s_list)
+        return L.stack(a_list), L.stack(s_list)
 
     def _grand_products(ratio):
         """ratio [C, 16, n] (rows >= u already 1) -> (z exclusive, inclusive)."""
         incl = df.prefix_prod(ratio)
-        one = df.one_mont_like(ratio[..., :1])
-        return torch.cat([one, incl[..., :-1]], dim=-1), incl
+        return L.shift(incl, one), incl
 
     zcols = []
     if ncols:
-        sigma_lag = torch.stack([T["lag"][tix[f"sigma{ci}"]] for ci in range(ncols)])
+        sigma_lag = L.stack([T["lag"][tix[f"sigma{ci}"]] for ci in range(ncols)])
         vals = _perm_value_stack(adv_lag, lk_lag, dyn_lag, inst_lag)
         bd = scal[:, 3:].transpose(0, 1)[:, :, None]  # [ncols, 16, 1]
         id_side = df._add(df._add(vals, df._mont_mul(T["omega"][None], bd)), gamma_c)
         sig_side = df._add(df._add(vals, df._mont_mul(sigma_lag, beta_c)), gamma_c)
         width = perm_chunks(ncols)[0][1] - perm_chunks(ncols)[0][0]
         total = nchunks * width
-        onepad = df.one_mont((total - ncols, n), device)
-        id_p = torch.cat([id_side, onepad], 0).reshape(nchunks, width, N_LIMBS, n)
-        sig_p = torch.cat([sig_side, onepad], 0).reshape(nchunks, width, N_LIMBS, n)
-        numer = _tree_prod(df, id_p.transpose(0, 1))
-        denom = _tree_prod(df, sig_p.transpose(0, 1))
+        onepad = L.ones(df, total - ncols, n)
+        id_p = L.cat([id_side, onepad]).reshape(nchunks, width, N_LIMBS, n)
+        sig_p = L.cat([sig_side, onepad]).reshape(nchunks, width, N_LIMBS, n)
+        numer = _tree_prod(df, id_p.transpose(0, 1), L.cat)
+        denom = _tree_prod(df, sig_p.transpose(0, 1), L.cat)
         ratio = df._mont_mul(numer, df._batch_inv(denom))
-        ratio = torch.where(row_lt_u, ratio, df.one_mont_like(ratio))
+        ratio = L.where(row_lt_u, ratio, one)
         z, incl = _grand_products(ratio)
         # chain chunks: scale_j = prod_{j' < j} z_{j'}[u]
-        ends = incl[..., u - 1 : u]
+        ends = L.take(incl, u - 1, u)
         scale_incl = _tree_scan_rows(df, ends)
         scale = torch.cat([df.one_mont((1, 1), device), scale_incl[:-1]], dim=0)
-        z = torch.where(row_lt_u | (torch.arange(n, device=device) == u), df._mont_mul(z, scale), z)
-        z = z.clone()
-        z[..., u + 1 :] = zb[:nchunks]
+        z = L.where(L.rows_below(n, u + 1), df._mont_mul(z, scale), z)
+        z = L.put(z, u + 1, zb[:nchunks])
         zcols.append(z)
     if ninst:
-        runtime_pre = torch.cat([adv_lag, lk_lag, dyn_lag, inst_lag], dim=0)
+        runtime_pre = L.cat([adv_lag, lk_lag, dyn_lag, inst_lag])
 
         def get_lag(src):
             kind, idx = src
@@ -621,19 +655,18 @@ def create_proof(
         numer = df._mont_mul(df._add(a_in, beta_c), df._add(t_in, gamma_c))
         denom = df._mont_mul(df._add(a_p, beta_c), df._add(s_p, gamma_c))
         ratio = df._mont_mul(numer, df._batch_inv(denom))
-        ratio = torch.where(row_lt_u, ratio, df.one_mont_like(ratio))
+        ratio = L.where(row_lt_u, ratio, one)
         zl, _ = _grand_products(ratio)
-        zl = zl.clone()
-        zl[..., u + 1 :] = zb[nchunks:]
+        zl = L.put(zl, u + 1, zb[nchunks:])
         zcols.append(zl)
-    allz_lag = torch.cat(zcols + [rand_lag], dim=0)
-    com3 = params.commit_columns(df, allz_lag, T["lagA"])
-    runtime_lag = torch.cat([adv_lag, lk_lag, dyn_lag, inst_lag, permuted_lag, allz_lag], dim=0)
+    allz_lag = L.cat(zcols + [rand_lag])
+    com3 = rt.commit(allz_lag, "lagA")
+    runtime_lag = L.cat([adv_lag, lk_lag, dyn_lag, inst_lag, permuted_lag, allz_lag])
     runtime_coeffs = ntt.inverse_cols(runtime_lag)
-    runtime_ext = coset.forward_cols(_pad_coeff(runtime_coeffs, dom.n_ext))
+    runtime_ext = coset.forward_cols(L.pad(runtime_coeffs, dom.n_ext))
     for pt in host_points(com3):
         tr.write_point(pt)
-    _t = stage_end("grand products", _t, device, timings)
+    _t = stage_end("grand products", _t, sync, timings)
 
     y = tr.squeeze_challenge()
 
@@ -656,15 +689,14 @@ def create_proof(
         permz_e, o = ext[o : o + nchunks], o + nchunks
         lkz_e, o = ext[o : o + ninst], o + ninst
         beta_e, gamma_e = beta_c, gamma_c
-        one_e = df.one_mont((ne,), device)
         exprs = []
 
         def rot(t, r):
-            return torch.roll(t, -4 * r, dims=-1)
+            return L.roll(t, -4 * r)
 
         # 1. gates
         if na:
-            sel_e = torch.stack([T["ext"][tix[f"sel{i}"]] for i in range(na)])
+            sel_e = L.stack([T["ext"][tix[f"sel{i}"]] for i in range(na)])
             g = df._sub(df._add(adv_e, df._mont_mul(rot(adv_e, 1), rot(adv_e, 2))), rot(adv_e, 3))
             gate_e = df._mont_mul(sel_e, g)
             exprs.extend(gate_e[i] for i in range(na))
@@ -672,12 +704,12 @@ def create_proof(
         # 1b. challenge pins: L_row_i * (advice_col - challenge)
         for i, (_c, flat_col, _row) in enumerate(vk.challenge_pins):
             q_e = T["ext"][tix[f"pinrow{i}"]]
-            diff = df._sub(adv_e[flat_col], chal_dev[:, i : i + 1].expand(N_LIMBS, ne))
+            diff = df._sub(adv_e[flat_col], chal_dev[:, i : i + 1])
             exprs.append(df._mont_mul(q_e, diff))
 
         # 2. permutation
         if nchunks:
-            exprs.append(df._mont_mul(T["l0_e"], df._sub(one_e, permz_e[0])))
+            exprs.append(df._mont_mul(T["l0_e"], df._sub(one, permz_e[0])))
             zl = permz_e[-1]
             exprs.append(df._mont_mul(T["llast_e"], df._sub(df._mont_mul(zl, zl), zl)))
             for j in range(1, nchunks):
@@ -686,7 +718,7 @@ def create_proof(
                 )
             parts = []
             if vk.num_fixed:
-                parts.append(torch.stack([T["ext"][tix[f"fix{i}"]] for i in range(vk.num_fixed)]))
+                parts.append(L.stack([T["ext"][tix[f"fix{i}"]] for i in range(vk.num_fixed)]))
             if na:
                 parts.append(adv_e)
             if nl:
@@ -695,24 +727,24 @@ def create_proof(
                 parts.append(inst_e)
             if nd:
                 parts.append(dyn_e)
-            vals_e = torch.cat(parts, dim=0)
-            sigma_e = torch.stack([T["ext"][tix[f"sigma{ci}"]] for ci in range(ncols)])
+            vals_e = L.cat(parts)
+            sigma_e = L.stack([T["ext"][tix[f"sigma{ci}"]] for ci in range(ncols)])
             bd = scal[:, 3:].transpose(0, 1)[:, :, None]
             left_f = df._add(df._add(vals_e, df._mont_mul(sigma_e, beta_e)), gamma_e)
             right_f = df._add(df._add(vals_e, df._mont_mul(T["x_poly_e"][None], bd)), gamma_e)
             width = perm_chunks(ncols)[0][1] - perm_chunks(ncols)[0][0]
             total = nchunks * width
-            onep = df.one_mont((total - ncols, ne), device)
-            lf = torch.cat([left_f, onep], 0).reshape(nchunks, width, N_LIMBS, ne)
-            rf = torch.cat([right_f, onep], 0).reshape(nchunks, width, N_LIMBS, ne)
-            left = df._mont_mul(rot(permz_e, 1), _tree_prod(df, lf.transpose(0, 1)))
-            right = df._mont_mul(permz_e, _tree_prod(df, rf.transpose(0, 1)))
+            onep = L.ones(df, total - ncols, ne)
+            lf = L.cat([left_f, onep]).reshape(nchunks, width, N_LIMBS, ne)
+            rf = L.cat([right_f, onep]).reshape(nchunks, width, N_LIMBS, ne)
+            left = df._mont_mul(rot(permz_e, 1), _tree_prod(df, lf.transpose(0, 1), L.cat))
+            right = df._mont_mul(permz_e, _tree_prod(df, rf.transpose(0, 1), L.cat))
             chunk_e = df._mont_mul(T["lact_e"][None], df._sub(left, right))
             exprs.extend(chunk_e[j] for j in range(nchunks))
 
         # 3. lookups (theta-compressed input/table expressions per instance)
         if ninst:
-            runtime_pre_e = torch.cat([adv_e, lk_e, dyn_e, inst_e], dim=0)
+            runtime_pre_e = L.cat([adv_e, lk_e, dyn_e, inst_e])
 
             def get_ext(src):
                 kind, idx = src
@@ -724,7 +756,7 @@ def create_proof(
             l0b = T["l0_e"][None]
             llb = T["llast_e"][None]
             lab = T["lact_e"][None]
-            e1 = df._mont_mul(l0b, df._sub(df.one_mont((ninst, ne), device), lkz_e))
+            e1 = df._mont_mul(l0b, df._sub(one, lkz_e))
             e2 = df._mont_mul(llb, df._sub(df._mont_mul(lkz_e, lkz_e), lkz_e))
             left = df._mont_mul(
                 df._mont_mul(rot(lkz_e, 1), df._add(a_p_e, beta_e)), df._add(s_p_e, gamma_e)
@@ -740,10 +772,10 @@ def create_proof(
                 exprs.extend([e1[j], e2[j], e3[j], e4[j], e5[j]])
 
         assert len(exprs) == K
-        stack = torch.stack(exprs)  # [K, 16, ne]
+        stack = L.stack(exprs)  # [K, 16, ne]
         ypows = dom.pows_of(ych, K).flip(-1)  # y^(K-1) ... y^0, [16, K]
         ycol = ypows.transpose(0, 1)[:, :, None]  # [K, 16, 1]
-        acc = _tree_sum(df, df._mont_mul(stack, ycol))
+        acc = _tree_sum(df, df._mont_mul(stack, ycol), L.cat)
         return df._mont_mul(acc, T["zh_inv"])
 
     h_ext = quotient(runtime_ext, dom.pack([y], device))
@@ -751,14 +783,14 @@ def create_proof(
     # quotient pieces: j = cs_degree - 1 (halo2 quotient_poly_degree); the top
     # (cs_degree - 1) coefficients of the pieces must vanish too
     npieces = quotient_pieces(vk)
-    top_zero = bool((h_coeffs[:, npieces * n - npieces :] == 0).all())
-    h_pieces = h_coeffs[:, : npieces * n].reshape(N_LIMBS, npieces, n).permute(1, 0, 2)
+    top_zero = bool((L.take(h_coeffs, npieces * n - npieces, dom.n_ext) == 0).all())
+    h_pieces = L.pieces(h_coeffs, npieces, n)
     # degree guard BEFORE the commitments enter the transcript
     assert top_zero, "quotient degree overflow"
-    com4 = params.commit_columns(df, h_pieces.contiguous(), T["monoA"])
+    com4 = rt.commit(h_pieces, "monoA")
     for pt in host_points(com4):
         tr.write_point(pt)
-    _t = stage_end("quotient", _t, device, timings)
+    _t = stage_end("quotient", _t, sync, timings)
 
     x = tr.squeeze_challenge()
     pts = point_values(x, k)
@@ -769,8 +801,7 @@ def create_proof(
     by_point = {pl: [lb for lb, pls in plan if pl in pls] for pl in point_list}
     xc = pow(x, n, P)
     h_scal = dom.pack([pow(xc, i, P) for i in range(npieces)], device)  # [16, npieces]
-    h_comb = _tree_sum(df, df._mont_mul(h_pieces, h_scal.transpose(0, 1)[:, :, None]))
-    pt_scalars = dom.pack([pts[pl] for pl in point_list], device)
+    h_comb = _tree_sum(df, df._mont_mul(h_pieces, h_scal.transpose(0, 1)[:, :, None]), L.cat)
 
     evals: dict[str, dict[str, int]] = {lb: {} for lb, _ in plan}
     for pi, pl in enumerate(point_list):
@@ -783,16 +814,16 @@ def create_proof(
                 stack.append(h_comb)
             else:
                 stack.append(T["coeff"][idx])
-        stack = torch.stack(stack)  # [L, 16, n]
-        xp = dom.pows_of(pt_scalars[:, pi : pi + 1], n)  # [16, n]
-        vals = df._from_mont(_tree_sum_lanes(df, df._mont_mul(stack, xp[None])))  # [L, 16, 1]
+        stack = L.stack(stack)  # [labels, 16, n]
+        xp = L.powers(rt.df, pts[pl], n)  # [16, n]
+        vals = df._from_mont(L.sum_lanes(rt.df, df._mont_mul(stack, xp[None])))  # [labels, 16, 1]
         host = limbs_to_ints(vals[:, :, 0].cpu().numpy())
         for lb, v in zip(by_point[pl], host):
             evals[lb][pl] = v
     for label, pts_labels in plan:
         for pl in pts_labels:
             tr.write_scalar(evals[label][pl])
-    _t = stage_end("evals", _t, device, timings)
+    _t = stage_end("evals", _t, sync, timings)
 
     # === SHPLONK h_open ====================================================
     v = tr.squeeze_challenge()
@@ -813,7 +844,7 @@ def create_proof(
 
     W = T["omega"]  # [16, n]
     h_lag = ntt.forward_cols(h_comb[None])[0]
-    g_forms, r_on_h, zs_on_h = [], [], []
+    g_forms, nums, zs_on_h = [], [], []
     for gi, (pts_labels, labels) in enumerate(groups):
         stack = []
         for lb in labels:
@@ -824,32 +855,32 @@ def create_proof(
                 stack.append(h_lag)
             else:
                 stack.append(T["lag"][idx])
-        stack = torch.stack(stack)  # [L, 16, n]
+        stack = L.stack(stack)  # [labels, 16, n]
         vcol = dom.pack([pow(v, i, P) for i in range(len(labels))], device)
-        g_forms.append(_tree_sum(df, df._mont_mul(stack, vcol.transpose(0, 1)[:, :, None])))
-        # r_j on H (Horner) and Z_{S_j} on H
+        g_forms.append(_tree_sum(df, df._mont_mul(stack, vcol.transpose(0, 1)[:, :, None]), L.cat))
+        # g_j - r_j on H (r_j by Horner) and Z_{S_j} on H
         r = dom.pack(r_coeffs_per_group[gi], device)  # [16, deg + 1]
-        acc = r[:, -1:].expand(N_LIMBS, n)
+        acc = r[:, -1:]
         for d in range(r.shape[1] - 2, -1, -1):
             acc = df._add(df._mont_mul(acc, W), r[:, d : d + 1])
-        r_on_h.append(acc)
+        nums.append(df._sub(g_forms[-1], acc))
         s = dom.pack([pts[pl] for pl in pts_labels], device)
-        zs = df._sub(W, s[:, 0:1].expand(N_LIMBS, n))
+        zs = df._sub(W, s[:, 0:1])
         for d in range(1, s.shape[1]):
-            zs = df._mont_mul(zs, df._sub(W, s[:, d : d + 1].expand(N_LIMBS, n)))
+            zs = df._mont_mul(zs, df._sub(W, s[:, d : d + 1]))
         zs_on_h.append(zs)
-    gstack = torch.stack(g_forms)  # [ngroups, 16, n]
-    inv_zs = df._batch_inv(torch.stack(zs_on_h))
-    num = df._sub(gstack, torch.stack(r_on_h))
+    gstack = L.stack(g_forms)  # [ngroups, 16, n]
+    inv_zs = df._batch_inv(L.stack(zs_on_h))
+    num = L.stack(nums)
     wpows = []
     wp = 1
     for _ in groups:
         wpows.append(wp)
         wp = wp * w_ch % P
     wcol = dom.pack(wpows, device).transpose(0, 1)[:, :, None]  # [ngroups, 16, 1]
-    h_open_lag = _tree_sum(df, df._mont_mul(df._mont_mul(num, inv_zs), wcol))
+    h_open_lag = _tree_sum(df, df._mont_mul(df._mont_mul(num, inv_zs), wcol), L.cat)
     h_open_coeffs = ntt.inverse_cols(h_open_lag[None])[0]
-    com6 = params.commit_columns(df, h_open_coeffs[None], T["monoA"])
+    com6 = rt.commit(h_open_coeffs[None], "monoA")
     tr.write_point(host_points(com6)[0])
 
     u_ch = tr.squeeze_challenge()
@@ -868,14 +899,14 @@ def create_proof(
         wp = wp * w_ch % P
     rucol = dom.pack(ru_list, device).transpose(0, 1)[:, :, None]
     sccol = dom.pack(scale_list, device).transpose(0, 1)[:, :, None]
-    L_acc = _tree_sum(df, df._mont_mul(df._sub(gstack, rucol), sccol))
+    L_acc = _tree_sum(df, df._mont_mul(df._sub(gstack, rucol), sccol), L.cat)
     L_acc = df._sub(L_acc, df._mont_mul(h_open_lag, dom.pack([zt_u], device)))
-    inv_xu = df._batch_inv(df._sub(W, dom.pack([u_ch], device).expand(N_LIMBS, n)))
+    inv_xu = df._batch_inv(df._sub(W, dom.pack([u_ch], device)))
     q_evals = df._mont_mul(L_acc, inv_xu)
     q_coeffs = ntt.inverse_cols(q_evals[None])[0]
-    com7 = params.commit_columns(df, q_coeffs[None], T["monoA"])
+    com7 = rt.commit(q_coeffs[None], "monoA")
     tr.write_point(host_points(com7)[0])
-    _t = stage_end("shplonk", _t, device, timings)
+    _t = stage_end("shplonk", _t, sync, timings)
     return tr.finalize()
 
 

@@ -51,7 +51,7 @@ inversion (safegcd divsteps).
 They are compiled with ``nvcc`` for ``sm_90a`` into one shared library with
 a plain C interface, at first use, under ``halo2_lib_tpu_torch/_build/``
 (rebuilt when the sources change), and called through ``ctypes`` on
-PyTorch's current stream.
+the current stream of the operands' device, with that device current.
 
 Each wrapper runs its kernel on CUDA tensors and counts the launch in
 ``LAUNCHES``. On CPU tensors, and only there, it runs the kernel's plain
@@ -292,13 +292,16 @@ def _operand(x: torch.Tensor, shape) -> tuple[torch.Tensor, int, int]:
     return x.contiguous(), _prod(lead), Bx
 
 
-def _stream(t: torch.Tensor) -> int:
-    return torch.cuda.current_stream(t.device).cuda_stream
-
-
-def _check_rc(rc: int, name: str) -> None:
+def _launch(fn: str, like: torch.Tensor, *args, label: str | None = None) -> None:
+    """Call ``h2_<fn>(*args, stream)`` on the current stream of `like`'s
+    device, with that device current: the ctypes call launches on the host
+    thread's current device, which on a mesh need not be the operands'. The
+    only place a wrapper reaches the library."""
+    with torch.cuda.device(like.device):
+        stream = torch.cuda.current_stream(like.device).cuda_stream
+        rc = getattr(_lib(), f"h2_{fn}")(*args, stream)
     if rc != 0:
-        raise RuntimeError(f"CUDA kernel {name} failed to launch: cudaError {rc}")
+        raise RuntimeError(f"CUDA kernel {label or fn} failed to launch: cudaError {rc}")
 
 
 def _ptr(t: torch.Tensor) -> int:
@@ -958,9 +961,7 @@ def _binary(name: str, fid: int, a, b, plain):
         return out
     av, La, Ba = _operand(a, shape)
     bv, Lb, Bb = _operand(b, shape)
-    fn = getattr(_lib(), f"h2_{name}")
-    rc = fn(fid, _ptr(av), La, Ba, _ptr(bv), Lb, Bb, _ptr(out), L, B, _stream(out))
-    _check_rc(rc, name)
+    _launch(name, out, fid, _ptr(av), La, Ba, _ptr(bv), Lb, Bb, _ptr(out), L, B)
     _count(name, L * B, (tuple(av.shape), tuple(bv.shape)))
     return out
 
@@ -988,8 +989,7 @@ def fermat_inv(fid: int, a):
     L, B = _prod(x.shape[:-2]), x.shape[-1]
     if L * B == 0:
         return out
-    rc = _lib().h2_fermat_inv(fid, _ptr(x), _ptr(out), L, B, _stream(x))
-    _check_rc(rc, "fermat_inv")
+    _launch("fermat_inv", x, fid, _ptr(x), _ptr(out), L, B)
     _count("fermat_inv", L * B, (tuple(x.shape),))
     return out
 
@@ -1010,10 +1010,8 @@ def ntt_butterfly(fid: int, a, b, w):
     if L * B == 0:
         return top, bot
     wv, Lw, Bw = _operand(w, shape)
-    rc = _lib().h2_ntt_butterfly(
-        fid, _ptr(x), _ptr(y), _ptr(wv), Lw, Bw, _ptr(top), _ptr(bot), L, B, _stream(top)
-    )
-    _check_rc(rc, "ntt_butterfly")
+    _launch("ntt_butterfly", top, fid, _ptr(x), _ptr(y), _ptr(wv), Lw, Bw, _ptr(top), _ptr(bot),
+            L, B)
     _count("ntt_butterfly", L * B, (tuple(x.shape), tuple(wv.shape)))
     return top, bot
 
@@ -1050,12 +1048,10 @@ def ntt_small(fid: int, x, tw, pre=None, post=None):
     out = torch.empty_like(xc)
     if C == 0:
         return out
-    rc = _lib().h2_ntt_small(
-        fid, _ptr(xc), _ptr(twc), None if prc is None else _ptr(prc),
+    _launch(
+        "ntt_small", out, fid, _ptr(xc), _ptr(twc), None if prc is None else _ptr(prc),
         None if poc is None else _ptr(poc), 0 if poc is None else poc.shape[1], _ptr(out), C, n,
-        _stream(out),
     )
-    _check_rc(rc, "ntt_small")
     _count("ntt_small", C * n * (n.bit_length() - 1),
            (tuple(xc.shape), pre is not None, 0 if post is None else post.shape[1]))
     return out
@@ -1092,11 +1088,8 @@ def colntt(fid: int, x, tw, mid=None):
     out = torch.empty_like(xc)
     if L * B == 0:
         return out
-    rc = _lib().h2_colntt(
-        fid, _ptr(xc), _ptr(twc), None if mc is None else _ptr(mc), _ptr(out), L, A, B,
-        _stream(out),
-    )
-    _check_rc(rc, "colntt")
+    _launch("colntt", out, fid, _ptr(xc), _ptr(twc), None if mc is None else _ptr(mc), _ptr(out),
+            L, A, B)
     _count("colntt", L * B * A * (A.bit_length() - 1), (tuple(xc.shape), mid is not None))
     return out
 
@@ -1117,8 +1110,7 @@ def ec_add(P1, P2):
     L, B = _prod(shape[:-2]), shape[-1]
     if L * B == 0:
         return tuple(outs)
-    rc = _lib().h2_ec_add(*map(_ptr, ins), *map(_ptr, outs), L, B, _stream(outs[0]))
-    _check_rc(rc, "ec_add")
+    _launch("ec_add", outs[0], *map(_ptr, ins), *map(_ptr, outs), L, B)
     _count("ec_add", L * B, (tuple(shape),))
     return tuple(outs)
 
@@ -1133,8 +1125,7 @@ def ec_double(P):
     L, B = _prod(shape[:-2]), shape[-1]
     if L * B == 0:
         return tuple(outs)
-    rc = _lib().h2_ec_double(*map(_ptr, ins), *map(_ptr, outs), L, B, _stream(outs[0]))
-    _check_rc(rc, "ec_double")
+    _launch("ec_double", outs[0], *map(_ptr, ins), *map(_ptr, outs), L, B)
     _count("ec_double", L * B, (tuple(shape),))
     return tuple(outs)
 
@@ -1156,11 +1147,8 @@ def ec_madd(P1, A2, distinct: bool):
     L, B = _prod(shape[:-2]), shape[-1]
     if L * B == 0:
         return tuple(outs)
-    rc = _lib().h2_ec_madd(
-        *map(_ptr, ins), _ptr(ax), _ptr(ay), La, Ba, *map(_ptr, outs), L, B, int(distinct),
-        _stream(outs[0]),
-    )
-    _check_rc(rc, "ec_madd")
+    _launch("ec_madd", outs[0], *map(_ptr, ins), _ptr(ax), _ptr(ay), La, Ba, *map(_ptr, outs),
+            L, B, int(distinct))
     _count("ec_madd", L * B, (tuple(shape), tuple(ax.shape), bool(distinct)))
     return tuple(outs)
 
@@ -1185,8 +1173,7 @@ def bucket_scan(axy, seg_start, distinct: bool):
     out = torch.empty((Wb, R, 3 * N_LIMBS, CL), dtype=torch.int32, device=a.device)
     if Wb * R * CL == 0:
         return out
-    rc = _lib().h2_bucket_scan(_ptr(a), _ptr(s), _ptr(out), Wb, R, CL, int(distinct), _stream(a))
-    _check_rc(rc, "bucket_scan")
+    _launch("bucket_scan", a, _ptr(a), _ptr(s), _ptr(out), Wb, R, CL, int(distinct))
     _count("bucket_scan", Wb * R * CL, (tuple(a.shape), bool(distinct)))
     return out
 
@@ -1228,11 +1215,8 @@ def bucket_sums_fused(bases, order, digits, lanes: int, nbuckets: int, distinct:
     if Wtot * n * nbuckets == 0:
         return tuple(outs)
     tail = torch.empty((Wtot, 3 * N_LIMBS, lanes), dtype=torch.int32, device=d.device)
-    rc = _lib().h2_bucket_sums(
-        _ptr(b), _ptr(o), _ptr(d), *map(_ptr, outs), _ptr(tail), Wtot, n, lanes, nbuckets,
-        int(distinct), _stream(d),
-    )
-    _check_rc(rc, "bucket_sums_fused")
+    _launch("bucket_sums", d, _ptr(b), _ptr(o), _ptr(d), *map(_ptr, outs), _ptr(tail), Wtot, n,
+            lanes, nbuckets, int(distinct), label="bucket_sums_fused")
     _count("bucket_sums_fused", Wtot * n, ((Wtot, n), tuple(b.shape), lanes, nbuckets, bool(distinct)))
     return tuple(outs)
 
@@ -1243,9 +1227,7 @@ def mul_chain_bench(a, b, iters: int, chains: bool):
     the carry-chain product (chains=True) or the 64-bit C one it replaced."""
     a, b = a.contiguous(), b.contiguous()
     out = torch.empty_like(a)
-    rc = _lib().h2_mul_chain(int(chains), _ptr(a), _ptr(b), _ptr(out), a.shape[-1], iters,
-                             _stream(a))
-    _check_rc(rc, "mul_chain")
+    _launch("mul_chain", a, int(chains), _ptr(a), _ptr(b), _ptr(out), a.shape[-1], iters)
     return out
 
 
@@ -1281,10 +1263,7 @@ def bucket_weight(S, lanes: int):
     outs = [torch.empty((N_LIMBS, Wtot), dtype=torch.int32, device=ins[0].device) for _ in range(3)]
     if Wtot == 0:
         return tuple(outs)
-    rc = _lib().h2_bucket_weight(
-        *map(_ptr, ins), *map(_ptr, outs), Wtot, nb, lanes, _stream(outs[0])
-    )
-    _check_rc(rc, "bucket_weight")
+    _launch("bucket_weight", outs[0], *map(_ptr, ins), *map(_ptr, outs), Wtot, nb, lanes)
     _count("bucket_weight", Wtot * nb, ((Wtot, N_LIMBS, nb), lanes))
     return tuple(outs)
 
@@ -1312,10 +1291,7 @@ def msm_combine(T, windows: int, window_bits: int):
     outs = [torch.empty((N_LIMBS, C), dtype=torch.int32, device=ins[0].device) for _ in range(3)]
     if C == 0:
         return tuple(outs)
-    rc = _lib().h2_msm_combine(
-        *map(_ptr, ins), *map(_ptr, outs), C, windows, window_bits, _stream(outs[0])
-    )
-    _check_rc(rc, "msm_combine")
+    _launch("msm_combine", outs[0], *map(_ptr, ins), *map(_ptr, outs), C, windows, window_bits)
     _count("msm_combine", C * windows * window_bits, ((N_LIMBS, C * windows), windows, window_bits))
     return tuple(outs)
 
@@ -1357,11 +1333,8 @@ def commit_dbl_add(scalars, Ax, Ay):
     if C == 0:
         return tuple(outs)
     scratch = torch.empty((3, C, N_LIMBS, m), dtype=torch.int32, device=sc.device)
-    rc = _lib().h2_commit_dbl_add(
-        _ptr(sc), _ptr(ax), _ptr(ay), ax.shape[1], _ptr(scratch), *map(_ptr, outs), C, m,
-        _stream(sc),
-    )
-    _check_rc(rc, "commit_dbl_add")
+    _launch("commit_dbl_add", sc, _ptr(sc), _ptr(ax), _ptr(ay), ax.shape[1], _ptr(scratch),
+            *map(_ptr, outs), C, m)
     _count("commit_dbl_add", C * m, (tuple(sc.shape), tuple(ax.shape)))
     return tuple(outs)
 
@@ -1393,7 +1366,6 @@ def g1_batch_mul(scalars, Gx, Gy):
     outs = [torch.empty((N_LIMBS, n), dtype=torch.int32, device=sc.device) for _ in range(3)]
     if n == 0:
         return tuple(outs)
-    rc = _lib().h2_g1_batch_mul(_ptr(sc), _ptr(gx), _ptr(gy), *map(_ptr, outs), n, _stream(sc))
-    _check_rc(rc, "g1_batch_mul")
+    _launch("g1_batch_mul", sc, _ptr(sc), _ptr(gx), _ptr(gy), *map(_ptr, outs), n)
     _count("g1_batch_mul", n, (tuple(sc.shape),))
     return tuple(outs)

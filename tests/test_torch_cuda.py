@@ -436,6 +436,32 @@ def test_pipelined_k9_proof_on_a_side_stream(dev):
     assert proof == bytes(gold["proof"])
 
 
+def test_mesh_k9_proof_on_a_virtual_card_mesh(dev):
+    """create_proof of the golden circuit over a virtual mesh of 4 shards on
+    the card (or over the visible cards, when there are 4): the shards'
+    commits are commit_dbl_add launches folded by ec_add, the NTTs the
+    sharded four-step; the proof is golden_k9.npz's bytes."""
+    import os
+
+    import numpy as np
+
+    from halo2_lib_tpu_torch.backend.kzg import ParamsKZG
+    from halo2_lib_tpu_torch.backend.prover import create_proof
+    from halo2_lib_tpu_torch.convert import proving_key_from_numpy
+    from halo2_lib_tpu_torch.parallel import make_mesh
+    from halo2_lib_tpu_torch.utils.testing import golden_circuit
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    gold = np.load(os.path.join(root, "tests", "data", "torch_goldens", "golden_k9.npz"))
+    params = ParamsKZG.read(os.path.join(root, "params", "kzg_bn254_9.srs"), device=dev)
+    pk = proving_key_from_numpy(gold, dev)
+    mesh = make_mesh(4) if torch.cuda.device_count() >= 4 else make_mesh(4, device=dev)
+    cf.reset_launches()
+    proof = create_proof(params, pk, golden_circuit(), mesh=mesh)
+    assert proof == bytes(gold["proof"])
+    assert cf.LAUNCHES["ec_add"] > 0 and cf.LAUNCHES["commit_dbl_add"] > 0
+
+
 @pytest.mark.parametrize("prank", [False, True])
 def test_device_mock_stencil_on_the_card(dev, prank):
     """The device mock's gate stencil (mont_mul, field_add, field_sub on the

@@ -11,7 +11,7 @@ PORT = os.path.join(ROOT, "halo2_lib_tpu_torch")
 
 
 def _port_files():
-    out = [os.path.join(ROOT, "chip_smoke.py")]
+    out = [os.path.join(ROOT, "chip_smoke.py"), os.path.join(ROOT, "pipeline_probe.py")]
     for d, _, files in os.walk(PORT):
         out += [os.path.join(d, f) for f in files if f.endswith(".py")]
     return sorted(out)
@@ -56,6 +56,17 @@ def test_pipeline_mock_and_gadget_modules_are_walked():
     for rel in ("backend/pipeline.py", "backend/mock_device.py", "backend/precompile.py",
                 "safe_types.py", "poseidon/__init__.py", "poseidon/primitives.py",
                 "poseidon/spec.py", "poseidon/state.py", "poseidon/hasher.py", "poseidon/chip.py"):
+        assert rel in walked, rel
+
+
+def test_parallel_modules_and_root_scripts_are_walked():
+    """The multi-device layer and the port's scripts at the root are among
+    the files the import check walks (the jax-free run below loads parallel/
+    too)."""
+    walked = {os.path.relpath(f, ROOT) for f in _port_files()}
+    for rel in ("halo2_lib_tpu_torch/parallel/__init__.py", "halo2_lib_tpu_torch/parallel/sharded.py",
+                "halo2_lib_tpu_torch/parallel/distributed.py", "halo2_lib_tpu_torch/parallel/rows.py",
+                "chip_smoke.py", "pipeline_probe.py"):
         assert rel in walked, rel
 
 
