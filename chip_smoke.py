@@ -40,8 +40,9 @@ and exits non-zero:
 3. k=9     - keygen + create_proof of the golden circuit (seconds of each
              printed); the vk and proof bytes must equal the JAX package's
              goldens in tests/data/torch_goldens/. Its domains (2^9, 2^11)
-             take the radix-2 NTT, one ntt_small launch per NTT call (8),
-             and its commits (m = 2^9 <= 1024) the fused double-and-add, one
+             take the digit-plane DFT (MxuNTT), two dft_stage launches per
+             NTT call and no ntt_small, and its commits (m = 2^9 <= 1024)
+             the fused double-and-add, one
              commit_dbl_add launch per commit call, never Pippenger,
              ec_madd, ec_double or ec_add. Then one k=9 commit is timed three
              ways: the old per-bit loop, commit_dbl_add (Jacobian-equal to
@@ -51,8 +52,8 @@ and exits non-zero:
              lookup): keygen, create_proof, verify_proof and a tampered proof
              rejected, vk and proof bytes equal to the JAX goldens
              (multiphase_k9.npz, dynlookup_k9.npz); launches and the NTT
-             domains each took printed, one ntt_small launch per NTT call
-             below 2^12 points.
+             domains each took printed, two dft_stage launches per NTT call
+             below 2^12 points (MxuNTT), no ntt_small.
 4. k=15    - keygen -> create_proof -> verify_proof of the slice circuit (4
              advice + 1 lookup column, every column 2^15 rows), with a
              tampered proof rejected and the proof's SHA-256 held against the
@@ -67,12 +68,13 @@ and exits non-zero:
              Kernel launch counts (and the NTT and commit calls) are reset
              just before phases 3, 3b, 4 and 4b and read just after each;
              every kernel must have launched in the phases whose paths run
-             it: k=9 every kernel but colntt and the Pippenger ones
-             (bucket_sums_fused, bucket_weight, msm_combine); k=15 and ECDSA
-             every kernel but ntt_small and commit_dbl_add (the MSM is
-             bucket_sums_fused, bucket_weight and msm_combine, one launch
-             each per MSM call). ntt_small launches once per NTT call below
-             2^12 points in every phase (none at k=15 and ECDSA, whose
+             it: k=9 every kernel but colntt, ntt_small and the Pippenger
+             ones (bucket_sums_fused, bucket_weight, msm_combine); k=15 and
+             ECDSA every kernel but ntt_small, dft_stage and commit_dbl_add
+             (the MSM is bucket_sums_fused, bucket_weight and msm_combine,
+             one launch each per MSM call). dft_stage launches twice per
+             MxuNTT call (2^6..2^11 points) and ntt_small once per radix-2
+             NTT call in every phase (neither at k=15 and ECDSA, whose
              domains are 2^15 and 2^17). The literal ports ntt_butterfly,
              ec_madd, ec_double, ec_add and bucket_scan run on no path: 0
              launches in all of them. g1_batch_mul runs only where an SRS is
@@ -126,7 +128,7 @@ and exits non-zero:
              base_test().bench_builder on the card: keygen, the pinned
              prover builder, create_proof, verify_proof, a tampered proof
              rejected; vk and proof bytes equal to poseidon_k9.npz.
-10. mesh   - (after 9, before 5) multi-device proving (parallel/): over the
+10. mesh   - (after 9, before 11) multi-device proving (parallel/): over the
              visible cards, or on one card a virtual mesh of its shards
              (printed): ShardedNTT at 2^15 and 2^17, forward, inverse and
              both coset forms, bit-equal to new_ntt / CosetNTT; sharded_msm
@@ -139,13 +141,28 @@ and exits non-zero:
              a world of one (the HALO2_DIST_* triple, NCCL) whose
              make_global_mesh drives sharded_msm. The counts are reset just
              before each mesh proof and summed just after: the kernel rows'
-             `launches_mesh`, ec_add (the shards' fold) among them.
+             `launches_mesh`, ec_add (the shards' fold) and dft_stage (the
+             sub-transforms of 2^6 points and more) among them.
+11. mxu    - (after 10, before 5) the digit-plane DFT NTT (ops/ntt_mxu.py):
+             dft_stage against its plain version at R, C in 8..256 with 1,
+             3, 12 and 105 columns, without and with the pre and post
+             diagonals; MxuNTT against NTT at 2^6..2^11 and FourStepNTT at
+             2^15 and 2^17 (forward, inverse, pre, post); MxuNTT timed
+             against ntt_small at the k=9 paths' largest calls of each size
+             and against FourStepNTT at 2^15 and 2^17 (turns old, mxu, mxu,
+             old); dft_stage launched, ntt_small not, in phases 3, 3b and 9
+             (dft_stage also in 10); the golden k=9 keygen and proof again
+             with HALO2_NO_MXU_NTT=1 (new domains, every NTT through
+             ntt_small) equal to golden_k9.npz.
 5. timing  - every kernel again, at the largest shapes the main path gave it
              (the ECDSA, k=15 and k=9 paths' shapes; g1_batch_mul at phase
              6's [16, 2^20] with setup(19)'s scalars, its plain version run
              once; ntt_butterfly, ec_madd, ec_double, ec_add and bucket_scan,
-             off the path, at the shapes they had on it before their fusion):
-             kernel time, plain version time and the bound, as one JSON line;
+             off the path, at the shapes they had on it before their fusion;
+             ntt_small at the k=9 coset transform it served before MxuNTT):
+             kernel time, plain version time and the bound, as one JSON line
+             (dft_stage's library_ms: torch._int_mm at its pair products'
+             GEMM shape, the product without the fold);
              the fused kernels' and fermat_inv's serial chains on [timing]
              lines, commit_dbl_add also at m = 1024, and ntt_small beside
              the per-stage composition it replaced, at the same shape.
@@ -185,6 +202,8 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 # 32-bit integer multiply-adds: a lower bound on their time).
 PEAK_BYTES = 3.35e12
 PEAK_OPS32 = 67e12
+# the dense int8 tensor-core rate, 1979 T operations/s: multiply-adds per second
+PEAK_MACS8 = 1979e12 / 2
 # 32-bit operations of one Montgomery product (CIOS, 8 x 32-bit words):
 # 136 partial products, each a low and a high multiply-add.
 MM_OPS = 2 * 136
@@ -214,6 +233,9 @@ SOURCES = {
     "commit_dbl_add": ("csrc/ec_kernels.cu", "halo2_lib_tpu/ops/pallas_field.py:430"),
     # the SRS setup's scan of _ec_double_kernel and _ec_add_kernel steps
     "g1_batch_mul": ("csrc/ec_kernels.cu", "halo2_lib_tpu/ops/pallas_field.py:448"),
+    # no pallas_call: one stage of the XLA module ntt_mxu.py (_stage_limbs
+    # and _fold_mod_p)
+    "dft_stage": ("csrc/dft_kernels.cu", "halo2_lib_tpu/ops/ntt_mxu.py:341"),
 }
 # kernels the main path no longer launches: (work, shape) as LARGEST kept
 # them on the last path that ran them (ECDSA for bucket_scan, k=9 for the
@@ -232,7 +254,13 @@ FUSES = {
     "msm_combine": "halo2_lib_tpu/ops/ec_device.py:676-688",
     "commit_dbl_add": "halo2_lib_tpu/backend/kzg.py:499-519, halo2_lib_tpu/ops/ec_device.py:308",
     "g1_batch_mul": "halo2_lib_tpu/backend/kzg.py:635-661",
+    "dft_stage": "halo2_lib_tpu/ops/ntt_mxu.py:341-377 (_stage_limbs), :97-186 (_fold_mod_p), "
+                 ":256-289 (the twiddle and 1/n products)",
 }
+# kernels timed at a shape other than their largest launch of this run:
+# ntt_small at the k=9 coset transform it served until MxuNTT took those
+# sizes (its launches now come from the mesh's 2^4 and 2^5 sub-transforms)
+COMPARE_SHAPES = {"ntt_small": ((12, 16, 2048), True, 0)}
 # 32-bit operations of one batch of the inversion (csrc/fermat_kernel.cu):
 # the 2x2 matrix on (d, e), 6 multiply-adds a limb with the multiple of p,
 # and on (f, g), 4 a limb, over 9 limbs, each a 32 x 32 -> 64-bit product
@@ -788,7 +816,7 @@ def mesh_phase(torch, np, dev, keys=None):
     log("[mesh] ECDSA k=15 mesh proof: sha256 == the JAX digest, verifies, a flipped byte is "
         "rejected")
     log("[mesh] the mesh proofs' launches: " + json.dumps(launches))
-    for k in ("ec_add", "commit_dbl_add", "bucket_sums_fused", "ntt_small", "mont_mul"):
+    for k in ("ec_add", "commit_dbl_add", "bucket_sums_fused", "ntt_small", "dft_stage", "mont_mul"):
         if launches[k] == 0:
             raise AssertionError(f"mesh proofs: no {k} launch")
 
@@ -838,6 +866,7 @@ def main() -> None:
     import numpy as np
 
     from halo2_lib_tpu_torch.backend.keygen import keygen
+    from halo2_lib_tpu_torch.backend.poly import _domain
     from halo2_lib_tpu_torch.backend.kzg import (
         ParamsKZG, _affine_mont, _lagrange_scalars, _pack_affine, _tau_powers,
         commit_double_and_add, gen_srs, host_points, window_digits,
@@ -849,7 +878,8 @@ def main() -> None:
         DeviceCurve, _scan_lanes, msm_many_device, msm_window_bits, weight_lanes,
     )
     from halo2_lib_tpu_torch.ops.limbs import DeviceField, ints_to_limbs_T, limbs_to_ints
-    from halo2_lib_tpu_torch.ops.ntt import NTT, CosetNTT, new_ntt
+    from halo2_lib_tpu_torch.ops.ntt import NTT, CosetNTT, FourStepNTT, new_ntt
+    from halo2_lib_tpu_torch.ops.ntt_mxu import MxuNTT, dft_planes_np
     from halo2_lib_tpu_torch.utils.chacha import reference_srs_tau
     from halo2_lib_tpu_torch.backend.kzg import COMMIT_SIMPLE_MAX
     from halo2_lib_tpu_torch.utils.curves import BN254_G1
@@ -910,6 +940,19 @@ def main() -> None:
             pre = rand_limbs(gen, (16, n), torch, P[cf.FR]) if with_pre else None
             post = rand_limbs(gen, (16, post_n), torch, P[cf.FR]) if post_n else None
             return cf.FR, (x, tw, pre, post)
+        if name == "dft_stage":
+            # the R-point DFT's planes, and diagonals of the shapes given
+            (L, _, R, C), Ro, with_pre, post_n = spec
+            root = FR_BN254.nth_root_of_unity(R.bit_length() - 1)
+            planes = torch.from_numpy(dft_planes_np(P[cf.FR], root, R)).to(dev)
+            # (made limb-major with the lanes flat: rand_limbs takes the
+            # limb axis at -2)
+            x = rand_limbs(gen, (L, 16, R * C), torch, P[cf.FR]).reshape(L, 16, R, C)
+            pre = (rand_limbs(gen, (16, R * C), torch, P[cf.FR]).reshape(16, R, C)
+                   if with_pre else None)
+            post = (None if not post_n else rand_limbs(gen, (16, post_n), torch, P[cf.FR])
+                    .reshape((16, 1) if post_n == 1 else (16, Ro, C)))
+            return cf.FR, (x, planes, pre, post)
         if name == "colntt":
             (L, A, _, B), with_mid = spec
             x = rand_limbs(gen, (L, A, 16, B), torch, P[cf.FR])
@@ -998,6 +1041,8 @@ def main() -> None:
             return ((cf.colntt_plain if plain else cf.colntt)(fid, *args),)
         if name == "ntt_small":
             return ((cf.ntt_small_plain if plain else cf.ntt_small)(fid, *args),)
+        if name == "dft_stage":
+            return ((cf.dft_stage_plain if plain else cf.dft_stage)(fid, *args),)
         if name == "ec_add":
             return (cf.ec_add_plain if plain else cf.ec_add)(*args)
         if name == "ec_double":
@@ -1043,6 +1088,7 @@ def main() -> None:
         "bucket_weight": ((13, 16, 7), 2),
         "msm_combine": ((16, 26), 26, 10),
         "commit_dbl_add": ((3, 16, 13), (16, 20)),
+        "dft_stage": ((3, 16, 64, 5), 64, True, 64 * 5),
     }
     for name, spec in ragged.items():
         check(name, spec)
@@ -1166,6 +1212,19 @@ def main() -> None:
         torch.cuda.synchronize()
         return e0.elapsed_time(e1) / reps
 
+    def graph_ms(fn, reps: int) -> float:
+        """Mean milliseconds of one replay of fn() captured as a CUDA graph:
+        the device's time for its launches without the host's launch path."""
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            fn()
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            fn()
+        return time_ms(graph.replay, reps)
+
     def stage_line(d: dict) -> str:
         return json.dumps({k: round(v, 4) for k, v in d.items()})
 
@@ -1185,18 +1244,36 @@ def main() -> None:
         return call
 
     NTT.forward, NTT.inverse = counted(NTT.forward), counted(NTT.inverse)
+    # every MxuNTT call (new_ntt's pick for 2^6..2^11 points on the card):
+    # (n, columns, form)
+    mxu_calls = []
+
+    def counted_mxu(method, form):
+        def call(self, x, *args, **kwargs):
+            diag = args[0] if args else next(iter(kwargs.values()), None)
+            mxu_calls.append((self.n, x.numel() // (16 * self.n),
+                              form + ("" if diag is None else " + diagonal")))
+            return method(self, x, *args, **kwargs)
+        return call
+
+    MxuNTT.forward = counted_mxu(MxuNTT.forward, "forward")
+    MxuNTT.inverse = counted_mxu(MxuNTT.inverse, "inverse")
 
     def reset_counts() -> None:
         torch.cuda.synchronize()
         cf.reset_launches()
         ntt_calls.clear()
+        mxu_calls.clear()
 
-    def ntt_rule(name: str, launches: dict, calls: list) -> None:
-        """One ntt_small launch per NTT call below 2^12 points; no butterfly."""
-        if launches["ntt_small"] != len(calls) or launches["ntt_butterfly"]:
+    def ntt_rule(name: str, launches: dict, calls: list, mcalls: list = ()) -> None:
+        """One ntt_small launch per radix-2 NTT call and two dft_stage
+        launches per MxuNTT call (every n below 2^12 points); no butterfly."""
+        if (launches["ntt_small"] != len(calls) or launches["dft_stage"] != 2 * len(mcalls)
+                or launches["ntt_butterfly"]):
             raise AssertionError(f"{name}: ntt_small {launches['ntt_small']} launches for "
-                                 f"{len(calls)} NTT calls, ntt_butterfly "
-                                 f"{launches['ntt_butterfly']} (want one each, and 0)")
+                                 f"{len(calls)} NTT calls, dft_stage {launches['dft_stage']} for "
+                                 f"{len(mcalls)} MxuNTT calls, ntt_butterfly "
+                                 f"{launches['ntt_butterfly']} (want one, two each, and 0)")
 
     # --- 3. k=9 parity with the JAX goldens ---------------------------------------------
     t = time.time()
@@ -1222,6 +1299,7 @@ def main() -> None:
     torch.cuda.synchronize()
     t_prove9 = time.time() - t9
     launches9, largest9, ntt_calls9 = dict(cf.LAUNCHES), dict(cf.LARGEST), list(ntt_calls)
+    mxu_calls9 = list(mxu_calls)
     params9.commit_columns = commit_columns9
     if pk9.vk.to_bytes() != bytes(gold["vk"]):
         raise AssertionError("k=9 vk bytes differ from the JAX golden")
@@ -1241,12 +1319,13 @@ def main() -> None:
     if not commit_calls9 or any(launches9[k] != v for k, v in want9.items()):
         raise AssertionError(f"k=9 launches {launches9}; want {want9} "
                              f"({len(commit_calls9)} commit calls)")
-    ntt_rule("k=9", launches9, ntt_calls9)
-    if not ntt_calls9:
-        raise AssertionError("k=9: no NTT call took ntt_small")
+    ntt_rule("k=9", launches9, ntt_calls9, mxu_calls9)
+    if not mxu_calls9 or ntt_calls9:
+        raise AssertionError(f"k=9: {len(mxu_calls9)} NTT calls took MxuNTT, {len(ntt_calls9)} "
+                             f"ntt_small (want every one MxuNTT)")
     log(f"[k=9] {len(commit_calls9)} commit calls {commit_calls9}, one commit_dbl_add launch "
-        f"each; {len(ntt_calls9)} NTT calls of n = {ntt_calls9}, one ntt_small launch each; "
-        f"mont_mul {launches9['mont_mul']} launches")
+        f"each; {len(mxu_calls9)} NTT calls (n, columns, form) {mxu_calls9}, two dft_stage "
+        f"launches each, ntt_small 0; mont_mul {launches9['mont_mul']} launches")
 
     # one k=9 commit three ways: the largest column set the k=9 run committed
     (C9, _, m9), _ = largest9["commit_dbl_add"][1]
@@ -1290,7 +1369,7 @@ def main() -> None:
         else:
             proof3 = create_proof(params9, pk3, builder, seed=0, device=dev)
         torch.cuda.synchronize()
-        launches3, calls3 = dict(cf.LAUNCHES), list(ntt_calls)
+        launches3, calls3, mcalls3 = dict(cf.LAUNCHES), list(ntt_calls), list(mxu_calls)
         for k in cf.KERNELS:
             launches_3b[k] += launches3[k]
         if pk3.vk.to_bytes() != bytes(gold["vk"]):
@@ -1301,14 +1380,16 @@ def main() -> None:
             raise AssertionError(f"{cname} k=9 proof does not verify")
         if not tampered_rejected(params9, pk3.vk, proof3):
             raise AssertionError(f"{cname} k=9 tampered proof verifies")
-        ntt_rule(cname, launches3, calls3)
-        if not calls3:
-            raise AssertionError(f"{cname}: no NTT call took ntt_small")
+        ntt_rule(cname, launches3, calls3, mcalls3)
+        if not mcalls3 or calls3:
+            raise AssertionError(f"{cname}: {len(mcalls3)} NTT calls took MxuNTT, {len(calls3)} "
+                                 f"ntt_small (want every one MxuNTT)")
         log(f"[3b] {cname}: vk and proof byte-identical to the JAX goldens ({len(proof3)} bytes), "
             f"verifies, tampered proof rejected; {time.time() - t:.2f}s")
-        log(f"[3b] {cname}: {len(calls3)} NTT calls below 2^12 points, n = {sorted(set(calls3))} "
-            f"(ntt_small {launches3['ntt_small']}); colntt {launches3['colntt']} launches "
-            f"(the four-step transform, n >= 2^12)")
+        log(f"[3b] {cname}: {len(mcalls3)} NTT calls below 2^12 points, n = "
+            f"{sorted({c[0] for c in mcalls3})}, through MxuNTT (dft_stage "
+            f"{launches3['dft_stage']}, ntt_small {launches3['ntt_small']}); colntt "
+            f"{launches3['colntt']} launches (the four-step transform, n >= 2^12)")
         log(f"[3b] {cname} launches: " + json.dumps(launches3))
 
     # --- 4. k=15 slice circuit -------------------------------------------------------------
@@ -1418,12 +1499,13 @@ def main() -> None:
     off_path = ("ntt_butterfly", "ec_add", "ec_double", "ec_madd", "bucket_scan")
     pippenger = ("bucket_sums_fused", "bucket_weight", "msm_combine")
     missing = [k for k in cf.KERNELS
-               if k not in ("colntt", "g1_batch_mul", *off_path, *pippenger) and launches9[k] == 0]
+               if k not in ("colntt", "g1_batch_mul", "ntt_small", *off_path, *pippenger)
+               and launches9[k] == 0]
     for name, counts, calls in (("k=15", launches15, ntt_calls15),
                                 ("ecdsa", launches_e, ntt_calls_e)):
-        # no domain below 2^12 at k=15: ntt_small only if a call took one
+        # no domain below 2^12 at k=15: neither ntt_small nor dft_stage
         ntt_rule(name, counts, calls)
-        never = (*off_path, "commit_dbl_add")
+        never = (*off_path, "commit_dbl_add", "dft_stage")
         # the SRS is read from params/ here: no g1_batch_mul (phase 6 makes one)
         missing += [
             f"{k} ({name})" for k in cf.KERNELS
@@ -1555,7 +1637,7 @@ def main() -> None:
     # every domain is 2^19 or 2^21: the four-step NTT, no ntt_small; every
     # commit has 2^19 points: Pippenger, no commit_dbl_add; one g1_batch_mul
     ntt_rule("pairing", launches_p, ntt_calls_p)
-    never_p = ("ntt_small", "commit_dbl_add", *off_path)
+    never_p = ("ntt_small", "dft_stage", "commit_dbl_add", *off_path)
     missing_p = [k for k in cf.KERNELS if k not in never_p and launches_p[k] == 0]
     if (any(launches_p[k] for k in never_p) or launches_p["g1_batch_mul"] != 1
             or launches_p["colntt"] == 0 or missing_p):
@@ -1696,7 +1778,7 @@ def main() -> None:
     log(json.dumps({"bench_runs": bench_runs}))
     # the pipelined ECDSA proof runs the ECDSA path's kernels, the commits of
     # its advice columns on the pipeline's stream among them
-    never_b = (*off_path, "commit_dbl_add", "ntt_small", "g1_batch_mul")
+    never_b = (*off_path, "commit_dbl_add", "ntt_small", "dft_stage", "g1_batch_mul")
     missing_b = [k for k in cf.KERNELS if k not in never_b and launches_b[k] == 0]
     if missing_b or any(launches_b[k] for k in never_b):
         raise AssertionError(f"bench path launches {launches_b}: not launched {missing_b}, "
@@ -1811,7 +1893,7 @@ def main() -> None:
         f"columns): bench_builder's vk and proof == the JAX golden, verifies, tampered proof "
         f"rejected; steps (s) " + stage_line(gst))
     log("[gadgets] launches: " + json.dumps(launches_g))
-    never_g = (*off_path, "colntt", *pippenger, "g1_batch_mul")
+    never_g = (*off_path, "colntt", *pippenger, "g1_batch_mul", "ntt_small")
     missing_g = [k for k in cf.KERNELS if k not in never_g and launches_g[k] == 0]
     if missing_g or any(launches_g[k] for k in never_g):
         raise AssertionError(f"gadgets launches {launches_g}: not launched {missing_g}, "
@@ -1821,6 +1903,121 @@ def main() -> None:
     # --- 10. mesh: the sharded NTT, MSM and create_proof(mesh=) -------------------------------
     launches_mesh, largest_mesh = mesh_phase(
         torch, np, dev, (params9, pk9, keys3b, params, epk, ebuilder, erng_state))
+
+    # --- 11. mxu: the digit-plane DFT NTT (dft_stage) ---------------------------------------
+    t11 = time.time()
+    # dft_stage against its plain version at R, C in 8..256 (the stage
+    # shapes of 2^6..2^16 points), 1, 3, 12 and 105 columns (fewer where the
+    # plain version's pair products would pass 2^26 entries) with the
+    # diagonals' forms: none, pre row and post block, the 1/n scalar, a post
+    # block alone; p - 1 among the values
+    pm1 = torch.tensor([((P[cf.FR] - 1) >> (16 * j)) & 0xFFFF for j in range(16)],
+                       dtype=torch.int32, device=dev)
+    n_dft = 0
+    for R in (8, 16, 32, 64, 128, 256):
+        for C in (8, 16, 32, 64, 128, 256):
+            forms = ((False, 0), (True, R * C), (False, 1), (False, R * C))
+            for L, (with_pre, post_n) in zip((1, 3, 12, 105), forms):
+                if L > 1 and 1024 * R * L * C > 1 << 26:
+                    L = max(1, (1 << 26) // (1024 * R * C))
+                fid, args = make_inputs("dft_stage", ((L, 16, R, C), R, with_pre, post_n))
+                args[0][0, :, 0, 0] = pm1
+                if max_err(run("dft_stage", fid, args, False), run("dft_stage", fid, args, True)):
+                    raise AssertionError(f"dft_stage at L, R, C = {L}, {R}, {C} (pre {with_pre}, "
+                                         f"post {post_n}) disagrees with its plain version")
+                n_dft += 1
+    log(f"[mxu] dft_stage == plain at {n_dft} shapes: R, C in 8..256, 1/3/12/105 columns, "
+        f"pre and post diagonals (max |diff| 0)")
+    # MxuNTT against the radix-2 and four-step transforms, all four forms
+    for log_n in (6, 7, 8, 9, 10, 11, 15, 17):
+        n = 1 << log_n
+        mxu = MxuNTT(fr_df, log_n, dev)
+        ref = (NTT if log_n < 12 else FourStepNTT)(fr_df, log_n, dev)
+        x = rand_limbs(gen, (3, 16, n), torch, P[cf.FR])
+        pre = rand_limbs(gen, (16, n), torch, P[cf.FR])
+        pairs = ((mxu.forward(x), ref.forward(x)), (mxu.inverse(x), ref.inverse(x)),
+                 (mxu.forward(x, pre=pre), ref.forward(x, pre=pre)),
+                 (mxu.inverse(x, post=mxu.inverse_post(7)), ref.inverse(x, post=ref.inverse_post(7))))
+        if any(not torch.equal(a, b) for a, b in pairs):
+            raise AssertionError(f"MxuNTT 2^{log_n} differs from {type(ref).__name__}")
+    log("[mxu] MxuNTT == NTT at 2^6..2^11 and == FourStepNTT at 2^15 and 2^17 (forward, "
+        "inverse, pre, post; 3 columns)")
+    # timing, in turns old, mxu, mxu, old: the k=9 paths' largest calls
+    # against ntt_small, the four-step sizes against FourStepNTT
+    big9 = {}
+    for n, C, form in mxu_calls9:
+        if C > big9.get(n, (0, ""))[0]:
+            big9[n] = (C, form)
+    mxu_runs = []
+    for n, (C, form) in sorted(big9.items()):
+        log_n = n.bit_length() - 1
+        mxu, old = MxuNTT(fr_df, log_n, dev), NTT(fr_df, log_n, dev)
+        x = rand_limbs(gen, (C, 16, n), torch, P[cf.FR])
+        diag = rand_limbs(gen, (16, n), torch, P[cf.FR]) if "diagonal" in form else None
+        fwd = form.startswith("forward")
+
+        def call(t, x=x, diag=diag, fwd=fwd):
+            return t.forward(x, pre=diag) if fwd else t.inverse(x, post=diag)
+
+        if not torch.equal(call(mxu), call(old)):
+            raise AssertionError(f"MxuNTT {form} at [{C}, 16, {n}] differs from NTT")
+        turns = [time_ms(lambda t=t: call(t), 20) for t in (old, mxu, mxu, old)]
+        graphs = [graph_ms(lambda t=t: call(t), 20) for t in (old, mxu, mxu, old)]
+        mxu_runs.append({"n": n, "columns": C, "form": form, "against": "NTT (ntt_small)",
+                         "old_ms": [round(v, 6) for v in turns[::3]],
+                         "mxu_ms": [round(v, 6) for v in turns[1:3]],
+                         "old_graph_ms": [round(v, 6) for v in graphs[::3]],
+                         "mxu_graph_ms": [round(v, 6) for v in graphs[1:3]]})
+    for log_n in (15, 17):
+        n = 1 << log_n
+        mxu, old = MxuNTT(fr_df, log_n, dev), FourStepNTT(fr_df, log_n, dev)
+        x = rand_limbs(gen, (2, 16, n), torch, P[cf.FR])
+        turns = [time_ms(lambda t=t: t.forward(x), 5) for t in (old, mxu, mxu, old)]
+        mxu_runs.append({"n": n, "columns": 2, "form": "forward", "against": "FourStepNTT (colntt)",
+                         "old_ms": [round(v, 6) for v in turns[::3]],
+                         "mxu_ms": [round(v, 6) for v in turns[1:3]]})
+    for r in mxu_runs:
+        log(f"[mxu] 2^{r['n'].bit_length() - 1} x {r['columns']} columns, {r['form']}: MxuNTT "
+            f"{r['mxu_ms']} ms, {r['against']} {r['old_ms']} ms (CUDA events, turns old, mxu, "
+            f"mxu, old)" + (f"; as CUDA graphs (device time) MxuNTT {r['mxu_graph_ms']} ms, "
+                            f"{r['against']} {r['old_graph_ms']} ms" if "mxu_graph_ms" in r else ""))
+    # the paths that now run dft_stage: the k=9 proofs (phases 3, 3b), the
+    # gadgets (9) and the meshes' sub-transforms (10)
+    mxu_paths = {"k9": launches9, "k9_phases": launches_3b, "gadgets": launches_g,
+                 "mesh": launches_mesh}
+    for label, counts in mxu_paths.items():
+        if counts["dft_stage"] == 0 or (label != "mesh" and counts["ntt_small"]):
+            raise AssertionError(f"{label}: dft_stage {counts['dft_stage']}, ntt_small "
+                                 f"{counts['ntt_small']} launches")
+    log("[mxu] launches (dft_stage, ntt_small): " + json.dumps(
+        {k: [v["dft_stage"], v["ntt_small"]] for k, v in mxu_paths.items()}))
+    # the golden k=9 proof again with HALO2_NO_MXU_NTT=1: new domains (the
+    # domain cache cleared), every NTT radix-2, the same bytes
+    gold9 = np.load(os.path.join(HERE, "tests", "data", "torch_goldens", "golden_k9.npz"))
+    os.environ["HALO2_NO_MXU_NTT"] = "1"
+    _domain.cache_clear()
+    try:
+        reset_counts()
+        t = time.time()
+        pk_r = keygen(params9, golden_circuit(), device=dev)
+        proof_r = create_proof(params9, pk_r, golden_circuit(), seed=0, device=dev)
+        torch.cuda.synchronize()
+        t_r = time.time() - t
+        launches_r, calls_r = dict(cf.LAUNCHES), list(ntt_calls)
+    finally:
+        os.environ.pop("HALO2_NO_MXU_NTT")
+        _domain.cache_clear()
+    if proof_r != bytes(gold9["proof"]) or pk_r.vk.to_bytes() != bytes(gold9["vk"]):
+        raise AssertionError("k=9 with HALO2_NO_MXU_NTT=1: vk or proof bytes differ from the golden")
+    ntt_rule("k=9, HALO2_NO_MXU_NTT=1", launches_r, calls_r)
+    if not calls_r:
+        raise AssertionError("k=9 with HALO2_NO_MXU_NTT=1: no NTT call took ntt_small")
+    log(f"[mxu] k=9 golden with HALO2_NO_MXU_NTT=1: vk and proof == golden_k9.npz through "
+        f"ntt_small ({launches_r['ntt_small']} launches, dft_stage {launches_r['dft_stage']}); "
+        f"keygen + create_proof {t_r:.3f}s (with MxuNTT, phase 3: "
+        f"{t_keygen9 + t_prove9:.3f}s)")
+    log(json.dumps({"mxu_runs": mxu_runs}))
+    log(f"[mxu] phase 11 {time.time() - t11:.2f}s")
 
     # --- 5. every kernel at its main-path shapes: check and time ----------------------------
     def numel(shape) -> int:
@@ -1864,6 +2061,23 @@ def main() -> None:
             nbytes = 128 * C * n + 32 * n + (64 * n if with_pre else 0) + 64 * post_n
             ops = (C * n // 2 * (n.bit_length() - 1) * (MM_OPS + 3 * 16)
                    + C * n * MM_OPS * (int(with_pre) + int(post_n > 0)))
+        elif name == "dft_stage":
+            # x, the planes and the diagonals read once, the output written
+            # once; the digit-pair multiply-adds at the int8 rate, and the
+            # epilogue's 32-bit operations: the carries of 63 columns, two
+            # ladders, two products and two adds an output, the diagonals'
+            # products
+            (L, _, R, C), Ro, with_pre, post_n = spec
+            nbytes = (64 * L * C * (R + Ro) + 32 * Ro * R + (64 * R * C if with_pre else 0)
+                      + 64 * post_n)
+            t_macs = 1024 * R * Ro * L * C / PEAK_MACS8 * 1e3
+            ops = (L * Ro * C * (63 * 4 + 2 * 3 * 16 + 2 * MM_OPS + 2 * 2 * 8
+                                 + (MM_OPS if post_n else 0))
+                   + (L * R * C * MM_OPS if with_pre else 0))
+            t_bytes, t_ops = nbytes / PEAK_BYTES * 1e3, max(ops / PEAK_OPS32 * 1e3, t_macs)
+            work["dft_parts"] = {"bytes_ms": t_bytes, "int8_macs_ms": t_macs,
+                                 "ops32_ms": ops / PEAK_OPS32 * 1e3}
+            return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
         elif name == "colntt":
             (L, A, _, B), with_mid = spec
             n = L * A * B
@@ -1952,8 +2166,9 @@ def main() -> None:
     for name in cf.KERNELS:
         # the kernels off the main path are timed at the shapes it gave them
         # before their fusion
-        spec = (largest_e.get(name) or largest15.get(name) or largest9.get(name)
-                or largest_p.get(name) or largest_mesh.get(name) or OFF_PATH_SHAPES[name])[1]
+        spec = (COMPARE_SHAPES.get(name) or (largest_e.get(name) or largest15.get(name)
+                or largest9.get(name) or largest_p.get(name) or largest_mesh.get(name)
+                or OFF_PATH_SHAPES[name])[1])
         if name == "colntt":
             # the NTT's stage twiddles start at the Montgomery one
             fid, args = make_inputs(name, spec)
@@ -1999,6 +2214,17 @@ def main() -> None:
                     else time_ms(lambda: run(name, fid, args, plain=True), 1))
         bms, by = bound(name, spec)
         src, rep = SOURCES[name]
+        library_ms = None
+        if name == "dft_stage":
+            # the product part's yardstick: one int8 GEMM of the stage's
+            # shape (M = 32 Ro, K = R, N = 32 C L: every digit pair, before
+            # the fold), which the port never calls
+            (L, _, R, C), Ro = spec[0], spec[1]
+            ga = torch.randint(-128, 128, (32 * Ro, R), generator=gen, device=dev,
+                               dtype=torch.int32).to(torch.int8)
+            gb = torch.randint(-128, 128, (R, 32 * C * L), generator=gen, device=dev,
+                               dtype=torch.int32).to(torch.int8)
+            library_ms = time_ms(lambda: torch._int_mm(ga, gb), reps)
         row = {
             "name": name,
             "route": "cuda",
@@ -2025,15 +2251,24 @@ def main() -> None:
             "plain_ms": round(plain_ms, 6),
             "bound_ms": round(bms, 6),
             "bound_by": by,
-            "library_ms": None,
+            "library_ms": None if library_ms is None else round(library_ms, 6),
             "shape": [list(s) if isinstance(s, tuple) else s for s in spec],
         }
         if name in FUSES:
             row["fuses"] = FUSES[name]
+        if name in ("dft_stage", "ntt_small"):
+            # the same launch as a CUDA graph: the device's time alone
+            row["graph_ms"] = round(graph_ms(lambda: run(name, fid, args, plain=False), reps), 6)
+            log(f"[timing] {name} at {spec} as a CUDA graph: {row['graph_ms']:.4f} ms")
+        if name == "dft_stage":
+            row["bound_parts_ms"] = {k: round(v, 6) for k, v in work["dft_parts"].items()}
+            log(f"[timing] dft_stage at {spec}: {ms:.4f} ms; the int8 GEMM of its pair products "
+                f"(torch._int_mm, no fold) {library_ms:.4f} ms; bound parts (ms) "
+                + json.dumps(row["bound_parts_ms"]))
         rows.append(row)
         log(f"[timing] {name} at {spec}: {ms:.4f} ms (plain {plain_ms:.3f} ms, "
             f"bound {bms:.4f} ms by {by}), kernel == plain")
-        if name in FUSES:
+        if name in FUSES and name != "dft_stage":
             log(f"[timing] {name}: its longest thread runs a chain of "
                 f"{serial_products(name, spec)} dependent Montgomery products, a floor the "
                 f"roofline bound does not see")

@@ -5,7 +5,7 @@ and returns the JAX package's layout: limb-major ``int32[..., 16, B]``
 tensors, sixteen 16-bit limbs per element, Montgomery form with R = 2^256
 (see ops/limbs.py). Field 0 is bn254 Fr, field 1 is bn254 Fq.
 
-Kernel sources live in ``../csrc`` (one header and four source families):
+Kernel sources live in ``../csrc`` (one header and five source families):
 
 =================  =============================================  ==========================
 wrapper            replaces (halo2_lib_tpu/ops/pallas_field.py)    source
@@ -29,6 +29,9 @@ wrapper            replaces (halo2_lib_tpu/ops/pallas_field.py)    source
                    then the ``_ec_add_kernel`` lane tree
 ``g1_batch_mul``   ``_ec_double_kernel`` + ``_ec_add_kernel`` scan of   ``ec_kernels.cu``
                    the SRS setup (every lane times G)
+``dft_stage``      no pallas_call: the XLA module ``ntt_mxu.py``'s     ``dft_kernels.cu``
+                   ``_stage_limbs`` + ``_fold_mod_p`` (one stage
+                   of the digit-plane DFT, with its diagonals)
 =================  =============================================  ==========================
 
 ``bucket_sums_fused``, ``bucket_weight`` and ``msm_combine`` fuse what a
@@ -46,7 +49,10 @@ complete ``_add``): commit_dbl_add's chain launch alone, its mixed add
 taking G in every lane. ``ec_double``, ``ec_madd`` and ``ec_add`` stay as
 the checked literal ports, off every path. ``fermat_inv`` computes the
 Fermat kernel's function (the Montgomery-form inverse) by a binary-GCD
-inversion (safegcd divsteps).
+inversion (safegcd divsteps). ``dft_stage`` is the one stage of
+``ops/ntt_mxu.py``'s MxuNTT: the 32 x 32 digit-pair products of the DFT
+matrix and the input on the integer tensor cores (u8 x u8 -> s32), folded
+into 63 columns and reduced mod p in the kernel.
 
 They are compiled with ``nvcc`` for ``sm_90a`` into one shared library with
 a plain C interface, at first use, under ``halo2_lib_tpu_torch/_build/``
@@ -73,6 +79,7 @@ import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
 
+import numpy as np
 import torch
 
 from ..utils.fields import FQ_BN254, FR_BN254
@@ -99,6 +106,7 @@ KERNELS = (
     "msm_combine",
     "commit_dbl_add",
     "g1_batch_mul",
+    "dft_stage",
 )
 # launches of each kernel since the last reset_launches(), and the operand
 # shapes of each kernel's largest launch in that time (chip_smoke.py times
@@ -129,7 +137,8 @@ def _count(name: str, work: int, shapes: tuple) -> None:
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(_PKG_DIR, "_build")
-SOURCES = ("field_kernels.cu", "fermat_kernel.cu", "ntt_kernels.cu", "ec_kernels.cu")
+SOURCES = ("field_kernels.cu", "fermat_kernel.cu", "ntt_kernels.cu", "ec_kernels.cu",
+           "dft_kernels.cu")
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
 ]
@@ -218,11 +227,12 @@ def _lib():
         lib.h2_msm_combine.argtypes = [P] * 6 + [I64, I, I, P]
         lib.h2_commit_dbl_add.argtypes = [P] * 3 + [I64] + [P] * 4 + [I64, I64, P]
         lib.h2_g1_batch_mul.argtypes = [P] * 6 + [I64, P]
+        lib.h2_dft_stage.argtypes = [I, P, P, P, P, I64, P, I64, I64, I64, I64, P]
         for fn in (
             "h2_mont_mul", "h2_field_add", "h2_field_sub", "h2_fermat_inv",
             "h2_ntt_butterfly", "h2_ntt_small", "h2_colntt", "h2_ec_add", "h2_ec_double", "h2_ec_madd",
             "h2_bucket_scan", "h2_bucket_sums", "h2_bucket_weight", "h2_msm_combine",
-            "h2_commit_dbl_add", "h2_g1_batch_mul", "h2_mul_chain",
+            "h2_commit_dbl_add", "h2_g1_batch_mul", "h2_mul_chain", "h2_dft_stage",
         ):
             getattr(lib, fn).restype = I
         _LIB = lib
@@ -560,6 +570,126 @@ def colntt_plain(fid: int, x, tw, mid=None):
 
 # EC formulas over Fq on [16, N] int64 rows; independent products are
 # stacked into one mm64 call, as ops/ec_device.py stacks them.
+
+
+# --- the digit-plane DFT stage (ops/ntt_mxu.py) ------------------------------------
+
+# 8-bit digit planes of a 256-bit value, and the folded product columns of a
+# digit-pair product (i + j for i, j < 32: 63, padded to 64)
+DFT_DIGITS = 32
+DFT_COLS = 64
+
+
+def digits_of(vals, nd: int):
+    """uint8[..., nd] little-endian digits of a numpy object array of ints."""
+    flat = vals.reshape(-1)
+    out = np.zeros((flat.size, nd), dtype=np.uint8)
+    for i, v in enumerate(flat):
+        out[i] = np.frombuffer(int(v).to_bytes(nd, "little"), dtype=np.uint8)
+    return out.reshape(vals.shape + (nd,))
+
+
+_G_TABLES: dict = {}
+
+
+def g_table(p: int):
+    """(g8 uint8[68, 32], c256): the digit planes of G_t = 2^(8t) mod p and
+    the 16 limbs of 2^256 mod p, the tables of the fold mod p."""
+    if p not in _G_TABLES:
+        G = np.array([pow(2, 8 * t, p) for t in range(68)], dtype=object)
+        c256 = tuple(((1 << 256) % p >> (16 * i)) & MASK for i in range(N_LIMBS))
+        _G_TABLES[p] = (digits_of(G, DFT_DIGITS), c256)
+    return _G_TABLES[p]
+
+
+def _normalize_digits(rows: list, extra: int) -> list:
+    """Carry [N] int64 rows of 8-bit-weighted sums into 8-bit digits, and
+    `extra` more digits of the last carry."""
+    out, carry = [], torch.zeros_like(rows[0])
+    for v in rows:
+        v = v + carry
+        out.append(v & 0xFF)
+        carry = v >> 8
+    for _ in range(extra):
+        out.append(carry & 0xFF)
+        carry = carry >> 8
+    return out
+
+
+def dft_fold_plain(fid: int, cols: torch.Tensor) -> torch.Tensor:
+    """int64 [64, N] product columns (column t weighs 2^(8t), each below
+    2^29) -> the value mod p, canonical int64 [16, N]: ntt_mxu.py's
+    _fold_mod_p (halo2_lib_tpu/ops/ntt_mxu.py:97) step for step: the carry
+    normalisation to 67 digits, the exact product by the digits of 2^(8t)
+    mod p (float64: every sum is below 2^23), the normalisation to 35 digits,
+    three folds of the part at or above 2^256 by 2^256 mod p, and the 8p,
+    4p, 2p, p subtract ladder."""
+    p = _MODULI[fid]
+    g8, c256 = g_table(p)
+    d8 = torch.stack(_normalize_digits(list(cols), 3))  # [67, N]
+    G = torch.as_tensor(g8[: d8.shape[0]], dtype=torch.float64, device=cols.device)
+    res = torch.mm(G.T, d8.to(torch.float64)).to(torch.int64)  # [32, N]
+    digs = _normalize_digits(list(res), 3)
+    digs.append(torch.zeros_like(digs[0]))
+    limbs = [digs[2 * u] | (digs[2 * u + 1] << 8) for u in range(len(digs) // 2)]  # 18
+    for _ in range(3):
+        lo, hi = limbs[:N_LIMBS], limbs[N_LIMBS:]
+        acc = list(lo) + [torch.zeros_like(lo[0]) for _ in range(2)]
+        for hj, h in enumerate(hi):
+            for u in range(N_LIMBS):
+                prod = h * c256[u]
+                if u + hj < len(acc):
+                    acc[u + hj] = acc[u + hj] + (prod & MASK)
+                if u + hj + 1 < len(acc):
+                    acc[u + hj + 1] = acc[u + hj + 1] + (prod >> 16)
+        limbs, carry = [], torch.zeros_like(acc[0])
+        for v in acc:
+            v = v + carry
+            limbs.append(v & MASK)
+            carry = v >> 16
+    for mult in (8, 4, 2, 1):
+        mp = mult * p
+        diff, borrow = [], torch.zeros_like(limbs[0])
+        for u in range(N_LIMBS + 2):
+            d = limbs[u] - ((mp >> (16 * u)) & MASK) - borrow
+            diff.append(d & MASK)
+            borrow = (d < 0).to(torch.int64)
+        ge = borrow == 0
+        limbs = [torch.where(ge, diff[u], limbs[u]) for u in range(N_LIMBS + 2)]
+    return torch.stack(limbs[:N_LIMBS])
+
+
+def dft_stage_plain(fid: int, x, planes, pre=None, post=None):
+    """dft_stage's function in torch ops: the 32 x 32 digit-plane products as
+    one float64 matrix product (every entry is a sum of at most 256 products
+    below 2^16, so it is exact in any order; CUDA has no int64 matrix
+    product), the pairs (i, j) summed into the columns t = i + j, then
+    dft_fold_plain; pre and post as mont_mul_plain. Columns go through in
+    groups that bound the pair products' memory."""
+    L, _, R, C = x.shape
+    Ro = planes.shape[1]
+    # columns per product: at most 2^25 entries of the pair products
+    step = max(1, (1 << 25) // (DFT_DIGITS * DFT_DIGITS * Ro * C))
+    if L > step:
+        return torch.cat([dft_stage_plain(fid, x[i : i + step], planes, pre, post)
+                          for i in range(0, L, step)])
+    if pre is not None:
+        x = mont_mul_plain(fid, x.reshape(L, N_LIMBS, R * C), pre.reshape(N_LIMBS, R * C))
+    X = x.reshape(L, N_LIMBS, R, C).to(torch.int64)
+    # digit 2i = limb i & 255, digit 2i + 1 = limb i >> 8
+    d = torch.stack([X & 0xFF, X >> 8], dim=2).reshape(L, DFT_DIGITS, R, C)
+    D = d.permute(2, 0, 1, 3).reshape(R, -1).to(torch.float64)  # [r, (l, j, c)]
+    W = planes.reshape(DFT_DIGITS * Ro, R).to(torch.float64)  # [(i, k), r]
+    M = torch.mm(W, D).to(torch.int64).reshape(DFT_DIGITS, Ro, L, DFT_DIGITS, C)
+    cols = torch.zeros((Ro, L, DFT_COLS, C), dtype=torch.int64, device=x.device)
+    for i in range(DFT_DIGITS):
+        cols[:, :, i : i + DFT_DIGITS] += M[i]
+    out = dft_fold_plain(fid, cols.permute(2, 0, 1, 3).reshape(DFT_COLS, -1))  # [16, (k, l, c)]
+    out = out.reshape(N_LIMBS, Ro, L, C).permute(2, 0, 1, 3).to(torch.int32)
+    if post is not None:
+        post = post.reshape(N_LIMBS, Ro * C) if post.dim() == 3 else post
+        out = mont_mul_plain(fid, out.reshape(L, N_LIMBS, Ro * C), post)
+    return out.reshape(L, N_LIMBS, Ro, C).contiguous()
 
 
 def _mmk(c, *pairs):
@@ -1369,3 +1499,51 @@ def g1_batch_mul(scalars, Gx, Gy):
     _launch("g1_batch_mul", sc, _ptr(sc), _ptr(gx), _ptr(gy), *map(_ptr, outs), n)
     _count("g1_batch_mul", n, (tuple(sc.shape),))
     return tuple(outs)
+
+
+# the longest contraction (rows R) and output rows (Ro) one dft_stage block
+# stages in shared memory
+DFT_MAX_R = 256
+
+
+def dft_stage(fid: int, x, planes, pre=None, post=None):
+    """One stage of the digit-plane DFT: every column (l, c) of x int32[L,
+    16, R, C] transformed along r by the DFT matrix whose 8-bit digit planes
+    are planes uint8[32, Ro, R] (canonical W[k, r]),
+
+        out[l, :, k, c] = post[k, c] * sum_r W[k, r] * (pre[r, c] * x[l, :, r, c]) mod p,
+
+    canonical int32[L, 16, Ro, C]; pre [16, R, C] and post [16, Ro, C] or
+    [16, 1] are optional Montgomery diagonals. R, Ro in [1, 256]. On the
+    card one launch: the digit-pair products on the integer tensor cores,
+    the fold mod p in the kernel."""
+    if x.dim() != 4 or x.shape[1] != N_LIMBS:
+        raise ValueError(f"expected columns [L, 16, R, C], got {tuple(x.shape)}")
+    L, _, R, C = x.shape
+    if planes.dtype != torch.uint8 or planes.dim() != 3 or planes.shape[0] != DFT_DIGITS:
+        raise ValueError(f"expected uint8 planes [32, Ro, R], got {planes.dtype} "
+                         f"{tuple(planes.shape)}")
+    Ro = planes.shape[1]
+    if planes.shape[2] != R or not (1 <= R <= DFT_MAX_R and 1 <= Ro <= DFT_MAX_R):
+        raise ValueError(f"planes {tuple(planes.shape)} for {R} input rows (R, Ro in [1, "
+                         f"{DFT_MAX_R}])")
+    if pre is not None and tuple(pre.shape) != (N_LIMBS, R, C):
+        raise ValueError(f"pre diagonal {tuple(pre.shape)} != {(N_LIMBS, R, C)}")
+    if post is not None and tuple(post.shape) not in ((N_LIMBS, Ro, C), (N_LIMBS, 1)):
+        raise ValueError(f"post diagonal {tuple(post.shape)} is neither {(N_LIMBS, Ro, C)} "
+                         f"nor [16, 1]")
+    if planes.device != x.device:
+        raise ValueError(f"planes on {planes.device}, columns on {x.device}")
+    if _on_cpu(*(t for t in (x, pre, post) if t is not None)):
+        return dft_stage_plain(fid, x, planes, pre, post)
+    xc, pc = x.contiguous(), planes.contiguous()
+    prc = None if pre is None else pre.contiguous()
+    poc = None if post is None else post.contiguous()
+    out = torch.empty((L, N_LIMBS, Ro, C), dtype=torch.int32, device=x.device)
+    if L * C == 0:
+        return out
+    post_n = 0 if poc is None else poc[0].numel()
+    _launch("dft_stage", out, fid, _ptr(xc), _ptr(pc), None if prc is None else _ptr(prc),
+            None if poc is None else _ptr(poc), post_n, _ptr(out), L, R, Ro, C)
+    _count("dft_stage", L * C * R * Ro, (tuple(xc.shape), Ro, pre is not None, post_n))
+    return out

@@ -16,9 +16,15 @@ into its load and store: the inverse's 1/n, and a coset's shift powers.
 128. Level l runs every stage of its length-Al sub-transforms in one
 ``colntt`` launch, with the four-step diagonal twiddle fused, and torch
 transposes move the data between levels.
+
+``new_ntt`` picks, as the JAX package does on the TPU: ``FourStepNTT`` from
+2^12 points up, the digit-plane DFT (``ops/ntt_mxu.py`` ``MxuNTT``) for
+2^6..2^11 points on a CUDA device, ``NTT`` otherwise.
 """
 
 from __future__ import annotations
+
+import os
 
 import torch
 
@@ -235,13 +241,25 @@ class FourStepNTT(NTT):
         return pows_host(self.df, root, self.n, self.device)
 
 
+# the sizes the digit-plane DFT (ops/ntt_mxu.py) takes on a CUDA device
+MXU_MIN_LOG = 6
+
+
 def new_ntt(df: DeviceField, log_n: int, device):
-    """NTT factory, as ops/ntt.py:new_ntt picks on the TPU: the four-step
-    transform from 2^12 points up, radix-2 Stockham (one ntt_small launch)
-    below. (The TPU's MXU digit-matmul NTT for 2^6..2^11 is not ported;
-    ntt_small serves there.) Both give the same values."""
+    """NTT factory, by the JAX package's rule (halo2_lib_tpu/ops/ntt.py:
+    263-285) with the accelerator read as a CUDA device: the four-step
+    transform from 2^12 points up; on a CUDA device the digit-plane DFT
+    (ops/ntt_mxu.py, two dft_stage launches a call) for 2^6..2^11 points
+    unless HALO2_NO_MXU_NTT=1; radix-2 Stockham (one ntt_small launch)
+    otherwise, and on the CPU. All give the same values."""
+    device = torch.device(device)
     if log_n >= MIN_FOURSTEP.bit_length() - 1:
         return FourStepNTT(df, log_n, device)
+    if (device.type == "cuda" and log_n >= MXU_MIN_LOG
+            and os.environ.get("HALO2_NO_MXU_NTT") != "1"):
+        from .ntt_mxu import MxuNTT  # it builds on this module
+
+        return MxuNTT(df, log_n, device)
     return NTT(df, log_n, device)
 
 

@@ -47,6 +47,15 @@ itself,
   seed-0 proof (keygen builder, pinned prover builder, create_proof),
   written after each stage with what is known so far. A full-size run:
   hours of CPU.
+* ``mxu_digests.json`` (with ``--mxu``, which freezes this and nothing
+  else): the SHA-256 of the JAX MXU NTT (``ops/ntt_mxu.py`` ``MxuNTT._body``
+  under one jit) forward, inverse, coset-forward and coset-inverse (shift 7,
+  scaled as ``ntt_digests.json``'s) at log n = 6, 7, 9 and 11 on
+  ``ntt_inputs``; both directions on 3 columns at log n = 7
+  (``batched_7``) and through the forced outer split k1 = 3, k2 = 5 at log
+  n = 8 (``split_8``); ``_stage_limbs`` alone (``stage``) on
+  ``mxu_stage_case``; ``_fold_mod_p`` alone (``fold``) on
+  ``mxu_fold_case``'s column sums at their 2^29 bound. About 4 minutes.
 * ``poseidon_k9.npz`` (with ``--poseidon``, which freezes this and nothing
   else): the keys of ``golden_k9.npz`` for the k=9 Poseidon + SafeTypes
   circuit (``poseidon_circuit`` below: a fixed-length hash of 32 bytes, a
@@ -63,6 +72,7 @@ Run from the repository root:
     JAX_PLATFORMS=cpu python tests/data/torch_goldens/make_goldens.py --large
     JAX_PLATFORMS=cpu python tests/data/torch_goldens/make_goldens.py --pairing
     JAX_PLATFORMS=cpu python tests/data/torch_goldens/make_goldens.py --poseidon
+    JAX_PLATFORMS=cpu python tests/data/torch_goldens/make_goldens.py --mxu
 
 The circuits are built here with the JAX eDSL, step for step as the port's
 ``utils/testing.py`` builds them with its own copy (the ECDSA circuit with
@@ -256,6 +266,93 @@ def freeze_ntt(log_ns=range(1, 11), name: str = "ntt_digests.json") -> None:
     with open(os.path.join(HERE, name), "w") as f:
         json.dump(out, f, indent=1)
         f.write("\n")
+
+
+def mxu_stage_case() -> np.ndarray:
+    """uint32 [16, 64, 32] limbs of canonical Fr values for ``_stage_limbs``
+    alone: random, then 0, 1, p - 1 and 2^253 - 1 (every limb 0xffff but the
+    top one) in the first four columns of every row
+    (tests/test_torch_ntt_mxu.py makes the same ones)."""
+    p = FR_BN254.p
+    rng = np.random.default_rng(64)
+    words = rng.integers(0, 1 << 63, size=(64, 32, 4), dtype=np.int64)
+    vals = [[sum(int(w) << (63 * i) for i, w in enumerate(el)) % p for el in row] for row in words]
+    for row in vals:
+        row[:4] = [0, 1, p - 1, (1 << 253) - 1]
+    flat = [v for row in vals for v in row]
+    limbs = np.array([[(v >> (16 * j)) & 0xFFFF for v in flat] for j in range(16)], dtype=np.uint32)
+    return limbs.reshape(16, 64, 32)
+
+
+def mxu_fold_case() -> np.ndarray:
+    """int32 [64, 32] product columns at the fold's bound: column c holds
+    2^29 - 1 in every row for c < 8, random values below 2^29 for c < 28,
+    and 0 / 2^29 - 1 in alternate rows for the last four
+    (tests/test_torch_ntt_mxu.py makes the same ones)."""
+    rng = np.random.default_rng(29)
+    cols = rng.integers(0, 1 << 29, size=(64, 32), dtype=np.int64)
+    cols[:, :8] = (1 << 29) - 1
+    cols[:, 28:] = 0
+    cols[::2, 28:] = (1 << 29) - 1
+    return cols.astype(np.int32)
+
+
+def freeze_mxu() -> None:
+    """The JAX MXU NTT's digests (``mxu_digests.json``, see the module
+    docstring). Each transform runs as one jit of ``MxuNTT._body``, as
+    ``freeze_ntt`` runs the Stockham NTT's."""
+    import jax
+    import jax.numpy as jnp
+
+    from halo2_lib_tpu.ops.limbs import DeviceField
+    from halo2_lib_tpu.ops.ntt import CosetNTT
+    from halo2_lib_tpu.ops.ntt_mxu import MxuNTT, _dft_planes, _fold_mod_p, _stage_limbs
+
+    df = DeviceField(FR_BN254)
+
+    def digest(a) -> str:
+        return hashlib.sha256(np.asarray(a).astype("<u4").tobytes()).hexdigest()
+
+    def both(mxu, x) -> dict:
+        return {"forward": digest(jax.jit(lambda c: mxu._body(c, True))(x)),
+                "inverse": digest(jax.jit(lambda c: mxu._body(c, False))(x))}
+
+    out = {}
+    for log_n in (6, 7, 9, 11):
+        t = time.time()
+        x = jnp.stack([df.pack(c) for c in ntt_inputs(log_n)])
+        mxu, coset = MxuNTT(df, log_n), CosetNTT(df, log_n, 7)
+        out[str(log_n)] = {
+            **both(mxu, x),
+            "coset_forward": digest(jax.jit(
+                lambda c: mxu._body(df._mont_mul(c, coset.shift_pows), True))(x)),
+            "coset_inverse": digest(jax.jit(
+                lambda c: df._mont_mul(mxu._body(c, False), coset.shift_inv_pows))(x)),
+        }
+        print(f"mxu_digests: log n = {log_n} {time.time() - t:.1f}s", flush=True)
+    out["batched_7"] = both(MxuNTT(df, 7), jnp.stack([df.pack(c) for c in ntt_inputs(7, 3)]))
+    # the outer four-step level over two MXU bases (the log n > 16 path),
+    # forced at log n = 8 as tests/test_ntt_mxu.py:53-80 builds it
+    ref = MxuNTT(df, 8)
+    forced = MxuNTT.__new__(MxuNTT)
+    forced.__dict__.update({k: getattr(ref, k) for k in
+                            ("df", "log_n", "n", "omega", "omega_inv", "n_inv", "n_inv_mont")})
+    forced.k1, forced.k2 = 3, 5
+    forced.sub = (MxuNTT(df, 3), MxuNTT(df, 5))
+    forced._tw = {}
+    forced._consts(True)
+    forced._consts(False)
+    out["split_8"] = both(forced, jnp.stack([df.pack(c) for c in ntt_inputs(8)]))
+    # one stage alone: the 64-point DFT planes of MxuNTT(11)'s first stage
+    w = FR_BN254.nth_root_of_unity(11)
+    planes = _dft_planes(FR_BN254.p, pow(w, 32, FR_BN254.p), 64)
+    X = jnp.asarray(mxu_stage_case())
+    out["stage"] = digest(jax.jit(lambda v: _stage_limbs(df, planes, v))(X))
+    out["fold"] = digest(jax.jit(lambda c: _fold_mod_p(df, c))(jnp.asarray(mxu_fold_case())))
+    with open(os.path.join(HERE, "mxu_digests.json"), "w") as f:
+        json.dump(out, f, indent=1)
+        f.write("\n")
+    print("mxu_digests.json written", flush=True)
 
 
 def field_values(seed: int, lanes: int = 72) -> list[int]:
@@ -857,6 +954,9 @@ def main() -> None:
         return
     if "--poseidon" in sys.argv:
         freeze_poseidon()
+        return
+    if "--mxu" in sys.argv:
+        freeze_mxu()
         return
     if "--phases" in sys.argv:
         params9 = ParamsKZG.read(os.path.join(ROOT, "params", "kzg_bn254_9.srs"))

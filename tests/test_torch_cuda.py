@@ -121,12 +121,14 @@ def test_ntt_small(dev, log_n):
             assert torch.equal(got, cf.ntt_small_plain(cf.FR, x, tw, pr, po))
 
 
-def test_small_ntt_on_the_card_matches_cpu(dev):
-    """The k=9 domains through NTT (2^9) and CosetNTT (2^11) on the card:
-    the CPU's values, one ntt_small launch per call, its scalings inside
-    (no mont_mul launch) and no butterfly."""
+def test_small_ntt_on_the_card_matches_cpu(dev, monkeypatch):
+    """The k=9 domains through NTT (2^9) and CosetNTT (2^11) on the card
+    (HALO2_NO_MXU_NTT=1 keeps CosetNTT's transform radix-2): the CPU's
+    values, one ntt_small launch per call, its scalings inside (no mont_mul
+    launch) and no butterfly."""
     from halo2_lib_tpu_torch.ops.ntt import NTT, CosetNTT
 
+    monkeypatch.setenv("HALO2_NO_MXU_NTT", "1")
     df = DeviceField(FR_BN254)
     gen = torch.Generator().manual_seed(11)
     for log_n, make in ((9, lambda d: NTT(df, 9, d)), (11, lambda d: CosetNTT(df, 11, 7, d))):
@@ -138,6 +140,73 @@ def test_small_ntt_on_the_card_matches_cpu(dev):
         assert torch.equal(card.inverse(y).cpu(), x)
         assert cf.LAUNCHES["ntt_small"] == 2
         assert cf.LAUNCHES["ntt_butterfly"] == 0 and cf.LAUNCHES["mont_mul"] == 0
+
+
+def _dft_planes(R: int, dev):
+    from halo2_lib_tpu_torch.ops.ntt_mxu import dft_planes_np
+
+    root = FR_BN254.nth_root_of_unity(R.bit_length() - 1)
+    return torch.from_numpy(dft_planes_np(FR_BN254.p, root, R)).to(dev)
+
+
+@pytest.mark.parametrize("R", [8, 16, 32, 64, 128, 256])
+@pytest.mark.parametrize("C", [8, 16, 32, 64, 128, 256])
+def test_dft_stage(dev, R, C):
+    """dft_stage against its plain version: the R-point DFT's planes, 1, 3,
+    12 and 105 columns of C lanes (fewer where the plain version's products
+    would pass 2^26 entries), without diagonals, with the pre row and the
+    twiddle-shaped post, with the 1/n scalar post, with a post row; p - 1
+    among the values."""
+    gen = torch.Generator().manual_seed(R * 1000 + C)
+    planes = _dft_planes(R, dev)
+    pm1 = torch.tensor([((FR_BN254.p - 1) >> (16 * j)) & 0xFFFF for j in range(16)],
+                       dtype=torch.int32, device=dev)
+    def block(lead):  # canonical [*lead, 16, R, C] (_rand takes the limb axis at -2)
+        return _rand((*lead, 16, R * C), FR_BN254.p, gen, dev).reshape(*lead, 16, R, C)
+
+    diags = (
+        (None, None),
+        (block(()), block(())),
+        (None, DeviceField(FR_BN254).pack(pow(R, -1, FR_BN254.p), device=dev)),
+        (None, block(())),
+    )
+    for L, (pre, post) in zip((1, 3, 12, 105), diags):
+        if L > 1 and 1024 * R * L * C > 1 << 26:
+            L = max(1, (1 << 26) // (1024 * R * C))
+        x = block((L,))
+        x[0, :, 0, 0] = pm1
+        cf.reset_launches()
+        got = cf.dft_stage(cf.FR, x, planes, pre, post)
+        assert cf.LAUNCHES["dft_stage"] == 1
+        assert torch.equal(got, cf.dft_stage_plain(cf.FR, x, planes, pre, post))
+
+
+@pytest.mark.parametrize("log_n", [6, 7, 8, 9, 10, 11, 15, 17])
+def test_mxu_ntt_on_the_card(dev, log_n):
+    """MxuNTT against the radix-2 NTT (below 2^12) or the four-step one, on
+    the card, in all four forms the prover uses; two dft_stage launches a
+    call up to 2^16 points (four with the outer level at 2^17) and no
+    ntt_small; new_ntt picks it for 2^6..2^11."""
+    from halo2_lib_tpu_torch.ops.ntt import NTT, FourStepNTT, new_ntt
+    from halo2_lib_tpu_torch.ops.ntt_mxu import MxuNTT
+
+    df = DeviceField(FR_BN254)
+    n = 1 << log_n
+    gen = torch.Generator().manual_seed(700 + log_n)
+    mxu = MxuNTT(df, log_n, dev)
+    ref = (NTT if log_n < 12 else FourStepNTT)(df, log_n, dev)
+    assert isinstance(new_ntt(df, log_n, dev), MxuNTT if log_n < 12 else FourStepNTT)
+    x = _rand((3, 16, n), FR_BN254.p, gen, dev)
+    pre = _rand((16, n), FR_BN254.p, gen, dev)
+    cf.reset_launches()
+    got = [mxu.forward(x), mxu.inverse(x), mxu.forward(x, pre=pre),
+           mxu.inverse(x, post=mxu.inverse_post(7))]
+    assert cf.LAUNCHES["dft_stage"] == 4 * (2 if log_n <= 16 else 4)
+    assert cf.LAUNCHES["ntt_small"] == 0
+    want = [ref.forward(x), ref.inverse(x), ref.forward(x, pre=pre),
+            ref.inverse(x, post=ref.inverse_post(7))]
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
 
 
 def test_ec_kernels(dev):

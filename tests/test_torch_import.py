@@ -11,7 +11,8 @@ PORT = os.path.join(ROOT, "halo2_lib_tpu_torch")
 
 
 def _port_files():
-    out = [os.path.join(ROOT, "chip_smoke.py"), os.path.join(ROOT, "pipeline_probe.py")]
+    out = [os.path.join(ROOT, name) for name in ("chip_smoke.py", "pipeline_probe.py",
+                                                 "dft_probe.py")]
     for d, _, files in os.walk(PORT):
         out += [os.path.join(d, f) for f in files if f.endswith(".py")]
     return sorted(out)
@@ -68,6 +69,13 @@ def test_parallel_modules_and_root_scripts_are_walked():
                 "halo2_lib_tpu_torch/parallel/distributed.py", "halo2_lib_tpu_torch/parallel/rows.py",
                 "chip_smoke.py", "pipeline_probe.py"):
         assert rel in walked, rel
+
+
+def test_ntt_mxu_module_and_probe_are_walked():
+    """The digit-plane DFT NTT and its probe script are among the files the
+    import check walks (the jax-free run below loads the module too)."""
+    walked = {os.path.relpath(f, ROOT) for f in _port_files()}
+    assert {"halo2_lib_tpu_torch/ops/ntt_mxu.py", "dft_probe.py"} <= walked
 
 
 def test_k8_prove_without_jax(tmp_path_factory):

@@ -37,6 +37,7 @@ import halo2_lib_tpu_torch.backend.mock_device, halo2_lib_tpu_torch.backend.pipe
 import halo2_lib_tpu_torch.backend.precompile, halo2_lib_tpu_torch.poseidon
 import halo2_lib_tpu_torch.safe_types, halo2_lib_tpu_torch as h2
 import halo2_lib_tpu_torch.parallel, halo2_lib_tpu_torch.parallel.distributed
+import halo2_lib_tpu_torch.ops.ntt_mxu
 exports = [getattr(h2, name) for name in ("base_test", "keygen", "create_proof", "verify_proof")]
 
 params = ParamsKZG.read(ROOT + "/params/kzg_bn254_9.srs", device="cpu")
