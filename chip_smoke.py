@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py [--ptxas] [--mesh-only]
 
-(--ptxas prints each kernel's registers and spills from nvcc; --mesh-only
+(--ptxas prints ptxas's report of every kernel; --mesh-only
 builds the kernels and runs phase 10 alone, over every visible card: the
 multi-card check.) Phases, each printing its own lines; any failure raises
 and exits non-zero:
@@ -36,13 +36,16 @@ and exits non-zero:
              ec_madd, select, then the ec_add lane tree; kept here, not in
              the package); fermat_inv on both fields at [1, 16, 1],
              [11, 16, 1] and [3, 16, 1000] with 0, 1, p - 1, R mod p and
-             2^-1 among random values.
+             2^-1 among random values. (The build prints the registers and
+             spills of g1_fixed_mul_k, commit_chain_k, dft_ntt_k and
+             dft_stage from ptxas's report, which lies beside the library,
+             and fails without an entry for either new kernel.)
 3. k=9     - keygen + create_proof of the golden circuit (seconds of each
              printed); the vk and proof bytes must equal the JAX package's
              goldens in tests/data/torch_goldens/. Its domains (2^9, 2^11)
-             take the digit-plane DFT (MxuNTT), two dft_stage launches per
-             NTT call and no ntt_small, and its commits (m = 2^9 <= 1024)
-             the fused double-and-add, one
+             take the digit-plane DFT (MxuNTT), one dft_ntt launch per NTT
+             call and no dft_stage or ntt_small, and its commits (m = 2^9 <=
+             1024) the fused double-and-add, one
              commit_dbl_add launch per commit call, never Pippenger,
              ec_madd, ec_double or ec_add. Then one k=9 commit is timed three
              ways: the old per-bit loop, commit_dbl_add (Jacobian-equal to
@@ -52,8 +55,8 @@ and exits non-zero:
              lookup): keygen, create_proof, verify_proof and a tampered proof
              rejected, vk and proof bytes equal to the JAX goldens
              (multiphase_k9.npz, dynlookup_k9.npz); launches and the NTT
-             domains each took printed, two dft_stage launches per NTT call
-             below 2^12 points (MxuNTT), no ntt_small.
+             domains each took printed, one dft_ntt launch per NTT call
+             below 2^12 points (MxuNTT), no dft_stage or ntt_small.
 4. k=15    - keygen -> create_proof -> verify_proof of the slice circuit (4
              advice + 1 lookup column, every column 2^15 rows), with a
              tampered proof rejected and the proof's SHA-256 held against the
@@ -70,10 +73,12 @@ and exits non-zero:
              every kernel must have launched in the phases whose paths run
              it: k=9 every kernel but colntt, ntt_small and the Pippenger
              ones (bucket_sums_fused, bucket_weight, msm_combine); k=15 and
-             ECDSA every kernel but ntt_small, dft_stage and commit_dbl_add
-             (the MSM is bucket_sums_fused, bucket_weight and msm_combine,
-             one launch each per MSM call). dft_stage launches twice per
-             MxuNTT call (2^6..2^11 points) and ntt_small once per radix-2
+             ECDSA every kernel but ntt_small, dft_stage, dft_ntt and
+             commit_dbl_add (the MSM is bucket_sums_fused, bucket_weight and
+             msm_combine, one launch each per MSM call). dft_ntt launches
+             once per MxuNTT call (2^6..2^11 points; dft_stage, which runs
+             only where MxuNTT is built directly above 2^11, on no path) and
+             ntt_small once per radix-2
              NTT call in every phase (neither at k=15 and ECDSA, whose
              domains are 2^15 and 2^17). The literal ports ntt_butterfly,
              ec_madd, ec_double, ec_add and bucket_scan run on no path: 0
@@ -83,8 +88,10 @@ and exits non-zero:
    pairing   creation on the card and the BN254 pairing circuit at
              configs/bn254/pairing_circuit.config (k=19, lookup_bits 18, 90-bit
              limbs): setup(12) and setup(15) byte for byte the committed
-             params/ files, a Processed round trip at k=12, g1_batch_mul
-             against its plain version at 300 lanes (scalars 0, 1, r - 1);
+             params/ files (and setup(9)), a Processed round trip at k=12,
+             g1_batch_mul (the comb) at 300 lanes with 0, 1, r - 1 and the
+             comb's edge scalars against its plain version, the old
+             double-and-add (affine) and the host curve;
              then, with the counts reset, gen_srs(19) makes the k=19 SRS on
              the card (one g1_batch_mul launch for both bases) into the
              git-ignored halo2_lib_tpu_torch/_build/params/, and the pairing
@@ -146,20 +153,27 @@ and exits non-zero:
 11. mxu    - (after 10, before 5) the digit-plane DFT NTT (ops/ntt_mxu.py):
              dft_stage against its plain version at R, C in 8..256 with 1,
              3, 12 and 105 columns, without and with the pre and post
-             diagonals; MxuNTT against NTT at 2^6..2^11 and FourStepNTT at
-             2^15 and 2^17 (forward, inverse, pre, post); MxuNTT timed
+             diagonals; dft_ntt against its plain version at 2^6..2^11 with
+             1, 3, 12 and 105 columns in four forms, one launch each;
+             MxuNTT against NTT at 2^6..2^11 and FourStepNTT at 2^12, 2^15
+             and 2^17 (forward, inverse, pre, post); MxuNTT timed
              against ntt_small at the k=9 paths' largest calls of each size
              and against FourStepNTT at 2^15 and 2^17 (turns old, mxu, mxu,
-             old); dft_stage launched, ntt_small not, in phases 3, 3b and 9
-             (dft_stage also in 10); the golden k=9 keygen and proof again
+             old); dft_ntt launched, dft_stage and ntt_small not, in phases
+             3, 3b and 9 (dft_ntt also in 10); the golden k=9 keygen and proof again
              with HALO2_NO_MXU_NTT=1 (new domains, every NTT through
              ntt_small) equal to golden_k9.npz.
 5. timing  - every kernel again, at the largest shapes the main path gave it
              (the ECDSA, k=15 and k=9 paths' shapes; g1_batch_mul at phase
              6's [16, 2^20] with setup(19)'s scalars, its plain version run
-             once; ntt_butterfly, ec_madd, ec_double, ec_add and bucket_scan,
-             off the path, at the shapes they had on it before their fusion;
-             ntt_small at the k=9 coset transform it served before MxuNTT):
+             once, affine-equal to the old double-and-add kernel
+             (g1_chain_bench), which is timed in turns with it, its bound
+             beside the comb's; ntt_butterfly, ec_madd,
+             ec_double, ec_add and bucket_scan, off the path, at the shapes
+             they had on it before their fusion; ntt_small at the k=9 coset
+             transform it served before MxuNTT, dft_stage at that
+             transform's stage 1; dft_ntt in turns with the three launches
+             it replaced, as CUDA events and as CUDA graphs):
              kernel time, plain version time and the bound, as one JSON line
              (dft_stage's library_ms: torch._int_mm at its pair products'
              GEMM shape, the product without the fold);
@@ -236,6 +250,9 @@ SOURCES = {
     # no pallas_call: one stage of the XLA module ntt_mxu.py (_stage_limbs
     # and _fold_mod_p)
     "dft_stage": ("csrc/dft_kernels.cu", "halo2_lib_tpu/ops/ntt_mxu.py:341"),
+    # no pallas_call: a whole base transform of the XLA module ntt_mxu.py
+    # (_transform's two stages, the twiddle and the transpose)
+    "dft_ntt": ("csrc/dft_kernels.cu", "halo2_lib_tpu/ops/ntt_mxu.py:256"),
 }
 # kernels the main path no longer launches: (work, shape) as LARGEST kept
 # them on the last path that ran them (ECDSA for bucket_scan, k=9 for the
@@ -256,11 +273,17 @@ FUSES = {
     "g1_batch_mul": "halo2_lib_tpu/backend/kzg.py:635-661",
     "dft_stage": "halo2_lib_tpu/ops/ntt_mxu.py:341-377 (_stage_limbs), :97-186 (_fold_mod_p), "
                  ":256-289 (the twiddle and 1/n products)",
+    "dft_ntt": "halo2_lib_tpu/ops/ntt_mxu.py:256-289 (_transform: both stages, the twiddle, "
+               "the transpose, the diagonals), :341-377 (_stage_limbs), :97-186 (_fold_mod_p)",
 }
 # kernels timed at a shape other than their largest launch of this run:
 # ntt_small at the k=9 coset transform it served until MxuNTT took those
-# sizes (its launches now come from the mesh's 2^4 and 2^5 sub-transforms)
-COMPARE_SHAPES = {"ntt_small": ((12, 16, 2048), True, 0)}
+# sizes (its launches now come from the mesh's 2^4 and 2^5 sub-transforms);
+# dft_stage at the stage 1 of that transform, which it served until dft_ntt
+# took every base transform up to 2^11 (it runs only where MxuNTT is built
+# directly above that: phase 11)
+COMPARE_SHAPES = {"ntt_small": ((12, 16, 2048), True, 0),
+                  "dft_stage": ((12, 16, 64, 32), 64, True, 64 * 32)}
 # 32-bit operations of one batch of the inversion (csrc/fermat_kernel.cu):
 # the 2x2 matrix on (d, e), 6 multiply-adds a limb with the multiple of p,
 # and on (f, g), 4 a limb, over 9 limbs, each a 32 x 32 -> 64-bit product
@@ -437,10 +460,38 @@ def commit_case(gen, torch, cf, spec, P: dict):
 
 def chain_work(scalars) -> list[int]:
     """Montgomery products of each lane's double-and-add chain (the chain
-    launch of commit_dbl_add and g1_batch_mul): a doubling (7) at and below
-    the lane's top bit and a mixed add (11) at each set bit but the first
-    (which meets the identity)."""
+    launch of commit_dbl_add, and of g1_batch_mul before the comb): a
+    doubling (7) at and below the lane's top bit and a mixed add (11) at each
+    set bit but the first (which meets the identity)."""
     return [7 * x.bit_length() + 11 * max(bin(x).count("1") - 1, 0) for x in scalars]
+
+
+def comb_work(cf, torch, scalars) -> tuple[int, int]:
+    """(Montgomery products g1_batch_mul's comb runs on the [16, n] scalar
+    limbs, the longest lane's): a mixed add (11) at each nonzero signed
+    digit of a lane (cf.comb_digits) but the first, which meets the
+    identity."""
+    nz = sum((mag > 0).to(torch.int64) for mag, _ in cf.comb_digits(scalars.to(torch.int64)))
+    lane = 11 * (nz - 1).clamp(min=0)
+    return int(lane.sum()), int(lane.max())
+
+
+def ptxas_report(log: str, names) -> dict:
+    """Registers and spill bytes of each kernel whose mangled name holds one
+    of `names`, from ptxas -v output: {name: [(registers, spill stores,
+    spill loads), ...]} (one entry per instantiation)."""
+    out, cur = {}, None
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            cur, spill = next((k for k in names if k in line), None), (-1, -1)
+        elif cur and "spill stores" in line:
+            nums = [int(w) for w in line.replace(",", " ").split() if w.isdigit()]
+            spill = (nums[1], nums[2]) if len(nums) >= 3 else (-1, -1)
+        elif cur and "Used" in line and "registers" in line:
+            regs = int(line.split("Used")[1].split()[0])
+            out.setdefault(cur, []).append((regs, *spill))
+            cur = None
+    return out
 
 
 def commit_work(scalars, m: int):
@@ -816,7 +867,7 @@ def mesh_phase(torch, np, dev, keys=None):
     log("[mesh] ECDSA k=15 mesh proof: sha256 == the JAX digest, verifies, a flipped byte is "
         "rejected")
     log("[mesh] the mesh proofs' launches: " + json.dumps(launches))
-    for k in ("ec_add", "commit_dbl_add", "bucket_sums_fused", "ntt_small", "dft_stage", "mont_mul"):
+    for k in ("ec_add", "commit_dbl_add", "bucket_sums_fused", "ntt_small", "dft_ntt", "mont_mul"):
         if launches[k] == 0:
             raise AssertionError(f"mesh proofs: no {k} launch")
 
@@ -893,7 +944,7 @@ def main() -> None:
         POSEIDON_K, POSEIDON_LOOKUP_BITS, base_test, check_proof, ecdsa_circuit, ecdsa_inputs,
         ecdsa_witness, golden_circuit, golden_witness, pairing_circuit, pairing_inputs,
         pairing_witness, poseidon_inputs, poseidon_logic, ram_circuit, rlc_circuit, rlc_prover,
-        slice_circuit,
+        slice_circuit, comb_edge_scalars, old_g1_batch_mul,
     )
 
     dev = torch.device("cuda")
@@ -904,8 +955,18 @@ def main() -> None:
 
     # --- 1. build ---------------------------------------------------------------
     t = time.time()
-    cf.build(verbose="--ptxas" in sys.argv)
+    cf.build()
     log(f"[build] kernels built in {time.time() - t:.2f}s; load {cf.load():.3f}s")
+    if "--ptxas" in sys.argv:
+        log(cf.ptxas_log())
+    # registers and spill bytes of the redesigned kernels and the ones they
+    # replaced, from the report the build keeps beside the library
+    ptxas = ptxas_report(cf.ptxas_log(), ("g1_fixed_mul_k", "commit_chain_k", "dft_ntt_k",
+                                          "dft_stage"))
+    if "g1_fixed_mul_k" not in ptxas or "dft_ntt_k" not in ptxas:
+        raise AssertionError(f"ptxas's report names no g1_fixed_mul_k or dft_ntt_k: {ptxas}")
+    log("[build] ptxas (registers, spill stores, spill loads) per instantiation: "
+        + json.dumps(ptxas))
     if "--mesh-only" in sys.argv:
         # phase 10 alone, over every visible card (the multi-card check)
         mesh_phase(torch, np, dev)
@@ -953,6 +1014,16 @@ def main() -> None:
             post = (None if not post_n else rand_limbs(gen, (16, post_n), torch, P[cf.FR])
                     .reshape((16, 1) if post_n == 1 else (16, Ro, C)))
             return cf.FR, (x, planes, pre, post)
+        if name == "dft_ntt":
+            # MxuNTT's own tables for the length (inverse where a post
+            # diagonal is given), random diagonals of the shapes given
+            (L, _, n), with_pre, post_n = spec
+            mxu_c = MxuNTT(fr_df, n.bit_length() - 1, dev)
+            tw, w1, w2 = mxu_c._consts[post_n == 0]
+            x = rand_limbs(gen, (L, 16, n), torch, P[cf.FR])
+            pre = rand_limbs(gen, (16, n), torch, P[cf.FR]) if with_pre else None
+            post = rand_limbs(gen, (16, post_n), torch, P[cf.FR]) if post_n else None
+            return cf.FR, (x, w1, w2, tw, pre, post)
         if name == "colntt":
             (L, A, _, B), with_mid = spec
             x = rand_limbs(gen, (L, A, 16, B), torch, P[cf.FR])
@@ -1043,6 +1114,8 @@ def main() -> None:
             return ((cf.ntt_small_plain if plain else cf.ntt_small)(fid, *args),)
         if name == "dft_stage":
             return ((cf.dft_stage_plain if plain else cf.dft_stage)(fid, *args),)
+        if name == "dft_ntt":
+            return ((cf.dft_ntt_plain if plain else cf.dft_ntt)(fid, *args),)
         if name == "ec_add":
             return (cf.ec_add_plain if plain else cf.ec_add)(*args)
         if name == "ec_double":
@@ -1089,6 +1162,7 @@ def main() -> None:
         "msm_combine": ((16, 26), 26, 10),
         "commit_dbl_add": ((3, 16, 13), (16, 20)),
         "dft_stage": ((3, 16, 64, 5), 64, True, 64 * 5),
+        "dft_ntt": ((5, 16, 2048), True, 2048),
     }
     for name, spec in ragged.items():
         check(name, spec)
@@ -1266,14 +1340,16 @@ def main() -> None:
         mxu_calls.clear()
 
     def ntt_rule(name: str, launches: dict, calls: list, mcalls: list = ()) -> None:
-        """One ntt_small launch per radix-2 NTT call and two dft_stage
-        launches per MxuNTT call (every n below 2^12 points); no butterfly."""
-        if (launches["ntt_small"] != len(calls) or launches["dft_stage"] != 2 * len(mcalls)
-                or launches["ntt_butterfly"]):
+        """One ntt_small launch per radix-2 NTT call and one dft_ntt launch
+        per MxuNTT call (every n below 2^12 points); no dft_stage (no path
+        builds an MxuNTT above 2^11), no butterfly."""
+        if (launches["ntt_small"] != len(calls) or launches["dft_ntt"] != len(mcalls)
+                or launches["dft_stage"] or launches["ntt_butterfly"]):
             raise AssertionError(f"{name}: ntt_small {launches['ntt_small']} launches for "
-                                 f"{len(calls)} NTT calls, dft_stage {launches['dft_stage']} for "
-                                 f"{len(mcalls)} MxuNTT calls, ntt_butterfly "
-                                 f"{launches['ntt_butterfly']} (want one, two each, and 0)")
+                                 f"{len(calls)} NTT calls, dft_ntt {launches['dft_ntt']} for "
+                                 f"{len(mcalls)} MxuNTT calls, dft_stage "
+                                 f"{launches['dft_stage']}, ntt_butterfly "
+                                 f"{launches['ntt_butterfly']} (want one, one, 0 and 0)")
 
     # --- 3. k=9 parity with the JAX goldens ---------------------------------------------
     t = time.time()
@@ -1324,8 +1400,8 @@ def main() -> None:
         raise AssertionError(f"k=9: {len(mxu_calls9)} NTT calls took MxuNTT, {len(ntt_calls9)} "
                              f"ntt_small (want every one MxuNTT)")
     log(f"[k=9] {len(commit_calls9)} commit calls {commit_calls9}, one commit_dbl_add launch "
-        f"each; {len(mxu_calls9)} NTT calls (n, columns, form) {mxu_calls9}, two dft_stage "
-        f"launches each, ntt_small 0; mont_mul {launches9['mont_mul']} launches")
+        f"each; {len(mxu_calls9)} NTT calls (n, columns, form) {mxu_calls9}, one dft_ntt "
+        f"launch each, dft_stage and ntt_small 0; mont_mul {launches9['mont_mul']} launches")
 
     # one k=9 commit three ways: the largest column set the k=9 run committed
     (C9, _, m9), _ = largest9["commit_dbl_add"][1]
@@ -1387,8 +1463,9 @@ def main() -> None:
         log(f"[3b] {cname}: vk and proof byte-identical to the JAX goldens ({len(proof3)} bytes), "
             f"verifies, tampered proof rejected; {time.time() - t:.2f}s")
         log(f"[3b] {cname}: {len(mcalls3)} NTT calls below 2^12 points, n = "
-            f"{sorted({c[0] for c in mcalls3})}, through MxuNTT (dft_stage "
-            f"{launches3['dft_stage']}, ntt_small {launches3['ntt_small']}); colntt "
+            f"{sorted({c[0] for c in mcalls3})}, through MxuNTT (dft_ntt "
+            f"{launches3['dft_ntt']}, dft_stage {launches3['dft_stage']}, ntt_small "
+            f"{launches3['ntt_small']}); colntt "
             f"{launches3['colntt']} launches (the four-step transform, n >= 2^12)")
         log(f"[3b] {cname} launches: " + json.dumps(launches3))
 
@@ -1499,13 +1576,14 @@ def main() -> None:
     off_path = ("ntt_butterfly", "ec_add", "ec_double", "ec_madd", "bucket_scan")
     pippenger = ("bucket_sums_fused", "bucket_weight", "msm_combine")
     missing = [k for k in cf.KERNELS
-               if k not in ("colntt", "g1_batch_mul", "ntt_small", *off_path, *pippenger)
+               if k not in ("colntt", "g1_batch_mul", "ntt_small", "dft_stage", *off_path,
+                            *pippenger)
                and launches9[k] == 0]
     for name, counts, calls in (("k=15", launches15, ntt_calls15),
                                 ("ecdsa", launches_e, ntt_calls_e)):
         # no domain below 2^12 at k=15: neither ntt_small nor dft_stage
         ntt_rule(name, counts, calls)
-        never = (*off_path, "commit_dbl_add", "dft_stage")
+        never = (*off_path, "commit_dbl_add", "dft_stage", "dft_ntt")
         # the SRS is read from params/ here: no g1_batch_mul (phase 6 makes one)
         missing += [
             f"{k} ({name})" for k in cf.KERNELS
@@ -1526,7 +1604,7 @@ def main() -> None:
     # g1_batch_mul against its plain version at a few hundred lanes
     t6 = time.time()
     r_fr = FR_BN254.p
-    for k in (12, 15):
+    for k in (9, 12, 15):
         with open(os.path.join(HERE, "params", f"kzg_bn254_{k}.srs"), "rb") as f:
             want = f.read()
         st = {}
@@ -1542,8 +1620,14 @@ def main() -> None:
             if back.to_halo2_bytes() != want or back.to_halo2_bytes(raw=False) != proc:
                 raise AssertionError("setup(12): the Processed round trip changed the SRS")
             log(f"[srs] setup(12): Processed bytes ({len(proc)}) read back to the same SRS")
+    # the comb at 300 lanes: 0, 1, r - 1 and every edge scalar of the comb
+    # (comb_edge_scalars: carries into and through the top window, every
+    # digit at +64 and at -63, digits 0 in the middle, the top entry doubled)
+    # among random ones, against the comb's plain version (Jacobian), the
+    # old double-and-add (affine) and the host curve (affine)
+    edge = [0, 1, r_fr - 1] + list(comb_edge_scalars().values())
     scal = rand_limbs(gen, (16, 300), torch, r_fr)
-    for lane, v in enumerate((0, 1, r_fr - 1)):
+    for lane, v in enumerate(edge):
         scal[:, lane] = torch.tensor([(v >> (16 * i)) & 0xFFFF for i in range(16)],
                                      dtype=torch.int32, device=dev)
     dcq = DeviceCurve(DeviceField(BN254_G1.base), BN254_G1)
@@ -1552,12 +1636,17 @@ def main() -> None:
     if max_err(got, cf.g1_batch_mul_plain(scal, Gx, Gy)):
         raise AssertionError("g1_batch_mul at 300 lanes disagrees with its plain version")
     aff = _affine_mont(dcq.df, *got)
-    some = list(zip(dcq.df.unpack(aff[0][:, :8]), dcq.df.unpack(aff[1][:, :8])))
+    old_aff = _affine_mont(dcq.df, *old_g1_batch_mul(scal, Gx, Gy))
+    if max_err(aff, old_aff):
+        raise AssertionError("g1_batch_mul's affine points differ from the old double-and-add's")
+    nchk = len(edge) + 5
+    some = list(zip(dcq.df.unpack(aff[0][:, :nchk]), dcq.df.unpack(aff[1][:, :nchk])))
     if some != [BN254_G1.mul(BN254_G1.g, v) or (0, 0)
-                for v in limbs_to_ints(scal[:, :8].T.cpu().numpy())]:
+                for v in limbs_to_ints(scal[:, :nchk].T.cpu().numpy())]:
         raise AssertionError("g1_batch_mul's affine points differ from the host curve's")
-    log("[srs] g1_batch_mul at [16, 300] (scalars 0, 1, r - 1 among them) == plain (max |diff| "
-        "0); its first 8 lanes in affine form == s G on the host")
+    log(f"[srs] g1_batch_mul (the comb) at [16, 300] (0, 1, r - 1 and {len(edge) - 3} edge "
+        f"scalars among them) == plain (max |diff| 0); affine == the "
+        f"old double-and-add's, and its first {nchk} lanes == s G on the host")
 
     # (b, d) the main path at k=19: gen_srs makes the SRS on the card (into a
     # git-ignored directory, never params/), then the pairing circuit at
@@ -1637,7 +1726,7 @@ def main() -> None:
     # every domain is 2^19 or 2^21: the four-step NTT, no ntt_small; every
     # commit has 2^19 points: Pippenger, no commit_dbl_add; one g1_batch_mul
     ntt_rule("pairing", launches_p, ntt_calls_p)
-    never_p = ("ntt_small", "dft_stage", "commit_dbl_add", *off_path)
+    never_p = ("ntt_small", "dft_stage", "dft_ntt", "commit_dbl_add", *off_path)
     missing_p = [k for k in cf.KERNELS if k not in never_p and launches_p[k] == 0]
     if (any(launches_p[k] for k in never_p) or launches_p["g1_batch_mul"] != 1
             or launches_p["colntt"] == 0 or missing_p):
@@ -1778,7 +1867,7 @@ def main() -> None:
     log(json.dumps({"bench_runs": bench_runs}))
     # the pipelined ECDSA proof runs the ECDSA path's kernels, the commits of
     # its advice columns on the pipeline's stream among them
-    never_b = (*off_path, "commit_dbl_add", "ntt_small", "dft_stage", "g1_batch_mul")
+    never_b = (*off_path, "commit_dbl_add", "ntt_small", "dft_stage", "dft_ntt", "g1_batch_mul")
     missing_b = [k for k in cf.KERNELS if k not in never_b and launches_b[k] == 0]
     if missing_b or any(launches_b[k] for k in never_b):
         raise AssertionError(f"bench path launches {launches_b}: not launched {missing_b}, "
@@ -1893,7 +1982,7 @@ def main() -> None:
         f"columns): bench_builder's vk and proof == the JAX golden, verifies, tampered proof "
         f"rejected; steps (s) " + stage_line(gst))
     log("[gadgets] launches: " + json.dumps(launches_g))
-    never_g = (*off_path, "colntt", *pippenger, "g1_batch_mul", "ntt_small")
+    never_g = (*off_path, "colntt", *pippenger, "g1_batch_mul", "ntt_small", "dft_stage")
     missing_g = [k for k in cf.KERNELS if k not in never_g and launches_g[k] == 0]
     if missing_g or any(launches_g[k] for k in never_g):
         raise AssertionError(f"gadgets launches {launches_g}: not launched {missing_g}, "
@@ -1929,7 +2018,7 @@ def main() -> None:
     log(f"[mxu] dft_stage == plain at {n_dft} shapes: R, C in 8..256, 1/3/12/105 columns, "
         f"pre and post diagonals (max |diff| 0)")
     # MxuNTT against the radix-2 and four-step transforms, all four forms
-    for log_n in (6, 7, 8, 9, 10, 11, 15, 17):
+    for log_n in (6, 7, 8, 9, 10, 11, 12, 15, 17):
         n = 1 << log_n
         mxu = MxuNTT(fr_df, log_n, dev)
         ref = (NTT if log_n < 12 else FourStepNTT)(fr_df, log_n, dev)
@@ -1940,8 +2029,31 @@ def main() -> None:
                  (mxu.inverse(x, post=mxu.inverse_post(7)), ref.inverse(x, post=ref.inverse_post(7))))
         if any(not torch.equal(a, b) for a, b in pairs):
             raise AssertionError(f"MxuNTT 2^{log_n} differs from {type(ref).__name__}")
-    log("[mxu] MxuNTT == NTT at 2^6..2^11 and == FourStepNTT at 2^15 and 2^17 (forward, "
+    log("[mxu] MxuNTT == NTT at 2^6..2^11 and == FourStepNTT at 2^12, 2^15 and 2^17 (forward, "
         "inverse, pre, post; 3 columns)")
+    # dft_ntt against its plain version at 2^6..2^11, 1, 3, 12 and 105
+    # columns, the four forms; one launch each
+    n_ntt = 0
+    for log_n in range(6, 12):
+        n = 1 << log_n
+        mxu = MxuNTT(fr_df, log_n, dev)
+        pre = rand_limbs(gen, (16, n), torch, P[cf.FR])
+        forms = [(mxu._consts[True], None, None), (mxu._consts[True], pre, None),
+                 (mxu._consts[False], None, mxu.n_inv_mont),
+                 (mxu._consts[False], None, mxu.inverse_post(7))]
+        for C in (1, 3, 12, 105):
+            x = rand_limbs(gen, (C, 16, n), torch, P[cf.FR])
+            x[0, :, 0] = pm1
+            for (tw, w1, w2), pr, po in forms:
+                cf.reset_launches()
+                got = cf.dft_ntt(cf.FR, x, w1, w2, tw, pr, po)
+                if (cf.LAUNCHES["dft_ntt"] != 1
+                        or not torch.equal(got, cf.dft_ntt_plain(cf.FR, x, w1, w2, tw, pr, po))):
+                    raise AssertionError(f"dft_ntt at [{C}, 16, {n}] disagrees with its plain "
+                                         f"version")
+                n_ntt += 1
+    log(f"[mxu] dft_ntt == plain at {n_ntt} cases: 2^6..2^11, 1/3/12/105 columns, forward, "
+        f"pre, 1/n, post (max |diff| 0), one launch each")
     # timing, in turns old, mxu, mxu, old: the k=9 paths' largest calls
     # against ntt_small, the four-step sizes against FourStepNTT
     big9 = {}
@@ -1981,16 +2093,17 @@ def main() -> None:
             f"{r['mxu_ms']} ms, {r['against']} {r['old_ms']} ms (CUDA events, turns old, mxu, "
             f"mxu, old)" + (f"; as CUDA graphs (device time) MxuNTT {r['mxu_graph_ms']} ms, "
                             f"{r['against']} {r['old_graph_ms']} ms" if "mxu_graph_ms" in r else ""))
-    # the paths that now run dft_stage: the k=9 proofs (phases 3, 3b), the
-    # gadgets (9) and the meshes' sub-transforms (10)
+    # the paths that run MxuNTT: the k=9 proofs (phases 3, 3b), the gadgets
+    # (9) and the meshes' sub-transforms (10), all through dft_ntt
     mxu_paths = {"k9": launches9, "k9_phases": launches_3b, "gadgets": launches_g,
                  "mesh": launches_mesh}
     for label, counts in mxu_paths.items():
-        if counts["dft_stage"] == 0 or (label != "mesh" and counts["ntt_small"]):
-            raise AssertionError(f"{label}: dft_stage {counts['dft_stage']}, ntt_small "
-                                 f"{counts['ntt_small']} launches")
-    log("[mxu] launches (dft_stage, ntt_small): " + json.dumps(
-        {k: [v["dft_stage"], v["ntt_small"]] for k, v in mxu_paths.items()}))
+        if (counts["dft_ntt"] == 0 or counts["dft_stage"]
+                or (label != "mesh" and counts["ntt_small"])):
+            raise AssertionError(f"{label}: dft_ntt {counts['dft_ntt']}, dft_stage "
+                                 f"{counts['dft_stage']}, ntt_small {counts['ntt_small']} launches")
+    log("[mxu] launches (dft_ntt, dft_stage, ntt_small): " + json.dumps(
+        {k: [v["dft_ntt"], v["dft_stage"], v["ntt_small"]] for k, v in mxu_paths.items()}))
     # the golden k=9 proof again with HALO2_NO_MXU_NTT=1: new domains (the
     # domain cache cleared), every NTT radix-2, the same bytes
     gold9 = np.load(os.path.join(HERE, "tests", "data", "torch_goldens", "golden_k9.npz"))
@@ -2013,7 +2126,7 @@ def main() -> None:
     if not calls_r:
         raise AssertionError("k=9 with HALO2_NO_MXU_NTT=1: no NTT call took ntt_small")
     log(f"[mxu] k=9 golden with HALO2_NO_MXU_NTT=1: vk and proof == golden_k9.npz through "
-        f"ntt_small ({launches_r['ntt_small']} launches, dft_stage {launches_r['dft_stage']}); "
+        f"ntt_small ({launches_r['ntt_small']} launches, dft_ntt {launches_r['dft_ntt']}); "
         f"keygen + create_proof {t_r:.3f}s (with MxuNTT, phase 3: "
         f"{t_keygen9 + t_prove9:.3f}s)")
     log(json.dumps({"mxu_runs": mxu_runs}))
@@ -2045,10 +2158,12 @@ def main() -> None:
             (C, _, m), _ = spec
             nbytes, ops = 64 * (C * m + 2 * m + 3 * C), work["commit"][0] * MM_OPS
         elif name == "g1_batch_mul":
-            # the scalars and G read once, [16, n] Jacobian sums written; the
-            # doublings and mixed adds these scalars need (chain_work)
+            # the scalars and the comb table read once, [16, n] Jacobian sums
+            # written; the mixed adds these scalars' signed digits need
+            # (comb_work; work["g1_old"] keeps the double-and-add's count)
             (_, n), = spec
-            nbytes, ops = 64 * (n + 2 + 3 * n), work["g1"][0] * MM_OPS
+            nbytes = 64 * (n + 3 * n) + 64 * cf.COMB_WINDOWS * cf.COMB_HALF
+            ops = work["g1"][0] * MM_OPS
         elif name == "ntt_butterfly":
             sa, sw = spec
             n = numel(sa) // 16
@@ -2077,6 +2192,24 @@ def main() -> None:
             t_bytes, t_ops = nbytes / PEAK_BYTES * 1e3, max(ops / PEAK_OPS32 * 1e3, t_macs)
             work["dft_parts"] = {"bytes_ms": t_bytes, "int8_macs_ms": t_macs,
                                  "ops32_ms": ops / PEAK_OPS32 * 1e3}
+            return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+        elif name == "dft_ntt":
+            # x, the planes, the twiddle and the diagonals read once, the
+            # output written once; both stages' digit-pair multiply-adds at
+            # the int8 rate, and the 32-bit operations: two epilogues an
+            # output (carries, ladders, two products and two adds each), the
+            # twiddle product, the diagonals' products
+            (L, _, n), with_pre, post_n = spec
+            N1 = 1 << -(-(n.bit_length() - 1) // 2)
+            N2 = n // N1
+            nbytes = (128 * L * n + 32 * (N1 * N1 + N2 * N2) + 64 * n
+                      + (64 * n if with_pre else 0) + 64 * post_n)
+            t_macs = 1024 * L * n * (N1 + N2) / PEAK_MACS8 * 1e3
+            ops = L * n * (2 * (63 * 4 + 2 * 3 * 16 + 2 * MM_OPS + 2 * 2 * 8) + MM_OPS
+                           + MM_OPS * (int(with_pre) + int(post_n > 0)))
+            t_bytes, t_ops = nbytes / PEAK_BYTES * 1e3, max(ops / PEAK_OPS32 * 1e3, t_macs)
+            work["dft_ntt_parts"] = {"bytes_ms": t_bytes, "int8_macs_ms": t_macs,
+                                     "ops32_ms": ops / PEAK_OPS32 * 1e3}
             return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
         elif name == "colntt":
             (L, A, _, B), with_mid = spec
@@ -2198,9 +2331,16 @@ def main() -> None:
             err = max_err(got, want)
             if err:
                 raise AssertionError(f"g1_batch_mul at {spec} disagrees with its plain version")
-            del got, want
-            lanes = chain_work(taus19 + lag19)
-            work["g1"] = (sum(lanes), max(lanes))
+            # the old double-and-add kernel on the same scalars: the same
+            # affine points
+            old = cf.g1_chain_bench(*args)
+            if max_err(_affine_mont(dcq.df, *got), _affine_mont(dcq.df, *old)):
+                raise AssertionError("g1_batch_mul at 2^20 lanes: affine points differ from the "
+                                     "old double-and-add kernel's")
+            del got, want, old
+            work["g1"] = comb_work(cf, torch, args[0])
+            old_lanes = chain_work(taus19 + lag19)
+            work["g1_old"] = (sum(old_lanes), max(old_lanes))
         else:
             fid, args, err = check(name, spec)
         if name == "fermat_inv":
@@ -2256,7 +2396,7 @@ def main() -> None:
         }
         if name in FUSES:
             row["fuses"] = FUSES[name]
-        if name in ("dft_stage", "ntt_small"):
+        if name in ("dft_stage", "ntt_small", "dft_ntt"):
             # the same launch as a CUDA graph: the device's time alone
             row["graph_ms"] = round(graph_ms(lambda: run(name, fid, args, plain=False), reps), 6)
             log(f"[timing] {name} at {spec} as a CUDA graph: {row['graph_ms']:.4f} ms")
@@ -2265,10 +2405,47 @@ def main() -> None:
             log(f"[timing] dft_stage at {spec}: {ms:.4f} ms; the int8 GEMM of its pair products "
                 f"(torch._int_mm, no fold) {library_ms:.4f} ms; bound parts (ms) "
                 + json.dumps(row["bound_parts_ms"]))
+        if name == "g1_batch_mul":
+            # the old double-and-add kernel and the comb on the same
+            # scalars, in turns old, comb, comb, old
+            pol = {"old double-and-add": lambda: cf.g1_chain_bench(*args),
+                   "comb": lambda: cf.g1_batch_mul(*args)}
+            turns = {k: [] for k in pol}
+            for k in list(pol) + list(pol)[::-1]:
+                turns[k].append(round(time_ms(pol[k], 3), 4))
+            row["turns_ms"] = turns
+            row["bound_old_algorithm_ms"] = round(work["g1_old"][0] * MM_OPS / PEAK_OPS32 * 1e3, 6)
+            row["ptxas"] = {k: ptxas.get(k) for k in ("g1_fixed_mul_k", "commit_chain_k")}
+            log(f"[timing] g1_batch_mul at {spec} (ms, CUDA events, turns): " + json.dumps(turns)
+                + f"; bound {bms:.4f} ms for the comb's {work['g1'][0]} products, "
+                f"{row['bound_old_algorithm_ms']:.4f} ms for the double-and-add's "
+                f"{work['g1_old'][0]}; ptxas (registers, spill stores, spill loads): "
+                + json.dumps(row["ptxas"]))
+        if name == "dft_ntt":
+            # the three launches it replaced (dft_stage, the transpose,
+            # dft_stage), in turns old, new, new, old; as CUDA events and as
+            # CUDA graphs
+            var = {"old: dft_stage, transpose, dft_stage":
+                       lambda: cf.dft_two_stages(cf.dft_stage, fid, *args),
+                   "dft_ntt": lambda: cf.dft_ntt(fid, *args)}
+            outs = [fn() for fn in var.values()]
+            if any(not torch.equal(o, outs[0]) for o in outs):
+                raise AssertionError(f"dft_ntt at {spec} differs from the old composition")
+            turns, gturns = {k: [] for k in var}, {k: [] for k in var}
+            for k in list(var) + list(var)[::-1]:
+                turns[k].append(round(time_ms(var[k], reps), 6))
+                gturns[k].append(round(graph_ms(var[k], reps), 6))
+            row["turns_ms"], row["graph_turns_ms"] = turns, gturns
+            row["bound_parts_ms"] = {k: round(v, 6) for k, v in work["dft_ntt_parts"].items()}
+            row["ptxas"] = {k: ptxas.get(k) for k in ("dft_ntt_k", "dft_stage")}
+            log(f"[timing] dft_ntt at {spec} (ms, turns): events " + json.dumps(turns)
+                + "; CUDA graphs " + json.dumps(gturns) + "; bound parts (ms) "
+                + json.dumps(row["bound_parts_ms"]) + "; ptxas (registers, spill stores, spill "
+                "loads): " + json.dumps(row["ptxas"]))
         rows.append(row)
         log(f"[timing] {name} at {spec}: {ms:.4f} ms (plain {plain_ms:.3f} ms, "
             f"bound {bms:.4f} ms by {by}), kernel == plain")
-        if name in FUSES and name != "dft_stage":
+        if name in FUSES and name not in ("dft_stage", "dft_ntt"):
             log(f"[timing] {name}: its longest thread runs a chain of "
                 f"{serial_products(name, spec)} dependent Montgomery products, a floor the "
                 f"roofline bound does not see")

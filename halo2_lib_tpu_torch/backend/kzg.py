@@ -216,13 +216,16 @@ def _batch_g1_mul(scalars: list[int], device, timings: dict | None = None):
     """[s * G1 for s in scalars] as Montgomery affine limbs (Ax, Ay), each
     int32[16, len] on `device`; (0, 0) where s = 0. The scalars go to the
     card as canonical 16-bit limbs (bytes, then numpy: no per-bit host
-    loop), one g1_batch_mul launch walks every lane's bits, and one batch
+    loop), G's comb table is built (once per process and device), one
+    g1_batch_mul launch sums every lane's digits' table entries, and one batch
     inversion of the Z's makes the sums affine."""
     t0 = time.time()
     dc = DeviceCurve(DeviceField(BN254_G1.base), BN254_G1)
     canon = to_device(ints_to_limbs_T([int(s) % FR_BN254.p for s in scalars]), device)
     Gx, Gy = dc.pack_points_affine([BN254_G1.g], device)
     t0 = stage_end("scalars to the card", t0, device, timings)
+    cf.g1_comb_table(Gx, Gy)
+    t0 = stage_end("comb table", t0, device, timings)
     X, Y, Z = cf.g1_batch_mul(canon, Gx, Gy)
     t0 = stage_end("g1_batch_mul", t0, device, timings)
     out = _affine_mont(dc.df, X, Y, Z)

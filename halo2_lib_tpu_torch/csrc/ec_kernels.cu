@@ -34,11 +34,12 @@
 //     scalar's double-and-add from the top bit with the accumulator in
 //     registers and the mixed add only where the bit is 1, then a tree launch
 //     of one block per column over the lanes' sums in shared memory;
-// and the SRS setup's per-lane double-and-add of the generator
+// and the SRS setup's per-lane multiple of the generator
 // (halo2_lib_tpu/backend/kzg.py:635-661, a lax.scan of _ec_double_kernel and
 // _ec_add_kernel steps on every lane):
-//   g1_batch_mul: commit_dbl_add's chain launch alone (one column, no tree),
-//     every lane reading the one base G (a base stride of 0).
+//   g1_batch_mul: a fixed-base comb (g1_fixed_mul_k), each lane summing
+//     signed 7-bit digits' multiples of G from a table in shared memory, one
+//     mixed add a nonzero digit and no doubling (see its section below).
 //
 // Bound on the H100: integer multiply issue. A complete add is 16 Montgomery
 // products on its add path (the doubling branch, taken on no lane of an MSM
@@ -50,8 +51,9 @@
 // (about 2400 products at W = 26, c = 10), a bucket_sums chain R = n / CL
 // mixed adds (128 at n = 2^15), a commit_dbl_add lane up to 254 doublings
 // and a mixed add per set bit (a warp runs the mixed add wherever one of
-// its lanes needs it: about 254 x 18 products), each product a dependent
-// chain of 32-bit multiply-adds (fp256.cuh: PTX carry chains).
+// its lanes needs it: about 254 x 18 products), a g1_batch_mul lane at most
+// 37 mixed adds, each product a dependent chain of 32-bit multiply-adds
+// (fp256.cuh: PTX carry chains).
 //
 // Design: one thread per point (or chain), every coordinate in registers; the
 // formulas are those of ops/ec_device.py, and the fused kernels run that
@@ -84,6 +86,8 @@
 // prefetch of the next base in the chains, and fewer idle threads in the last
 // wave of chains (Wtot * CL threads of 134 registers, three 128-thread blocks
 // an SM).
+#include <atomic>
+
 #include "fp256.cuh"
 
 using namespace h2;
@@ -603,8 +607,8 @@ __device__ __forceinline__ Jac ec_madd_branch(const Jac& P, const Fe& x2, const 
 // the result is unchanged. Every product is a call of one out-of-line copy
 // (MulCalled), so the step's code stays in the instruction cache. scal:
 // [C, 16, m] canonical scalars; ax, ay: [16, ldb] affine bases, lane e of
-// every column adding base e * bstep (bstep 0: every lane adds base 0, the
-// generator of g1_batch_mul); sx, sy, sz: [C, 16, m] each lane's sum.
+// every column adding base e * bstep (bstep 0: every lane adds base 0, as
+// g1_chain_bench runs it); sx, sy, sz: [C, 16, m] each lane's sum.
 constexpr int COMMIT_THREADS = 64;
 
 __global__ void __launch_bounds__(COMMIT_THREADS)
@@ -791,14 +795,132 @@ extern "C" int h2_commit_dbl_add(const int32_t* scal, const int32_t* ax, const i
   return (int)cudaGetLastError();
 }
 
-// s_i G for every lane: scal [16, n] canonical scalars; gx, gy: [16, 1] the
-// affine generator (Montgomery); ox, oy, oz: [16, n] each lane's Jacobian
-// sum. The chain launch of commit_dbl_add alone (one column, no tree), every
-// lane adding the one base.
-extern "C" int h2_g1_batch_mul(const int32_t* scal, const int32_t* gx, const int32_t* gy,
-                               int32_t* ox, int32_t* oy, int32_t* oz, int64_t n, void* stream) {
+// The double-and-add g1_batch_mul launched before the comb: commit_dbl_add's
+// chain launch alone (one column, no tree), every lane adding the one base
+// (a base stride of 0). Not on any path: chip_smoke.py times it beside the
+// comb. scal [16, n] canonical; gx, gy [16, 1]; ox, oy, oz [16, n].
+extern "C" int h2_g1_chain_bench(const int32_t* scal, const int32_t* gx, const int32_t* gy,
+                                 int32_t* ox, int32_t* oy, int32_t* oz, int64_t n,
+                                 void* stream) {
   if (n > 0)
     commit_chain_k<<<(unsigned)((n + COMMIT_THREADS - 1) / COMMIT_THREADS), COMMIT_THREADS, 0,
                      (cudaStream_t)stream>>>(scal, gx, gy, 1, 0, ox, oy, oz, 1, n);
+  return (int)cudaGetLastError();
+}
+
+// --- g1_batch_mul: s_i G for every lane by a fixed-base comb -----------------
+// The SRS setup multiplies one base, G, by 2n scalars. A per-lane
+// double-and-add (commit_chain_k, which this launch ran until the comb) spends
+// 254 doublings and a mixed add per set bit on every lane, about 3,175
+// products, and a warp waits at each bit where any lane adds. The base is
+// fixed, so its multiples are a table: T[j][d - 1] = d 2^(7j) G in Montgomery
+// affine form, window j < COMB_WINDOWS, 1 <= d <= COMB_HALF (37 x 64 points,
+// 151,552 bytes, staged once a block in shared memory). A lane recodes its
+// canonical scalar into signed 7-bit digits d_j in (-64, 64] (low window
+// first: d = window bits + carry, and d - 128 with a carry of one where d >
+// 64; the top window, bits 252-253 and the carry, stays at most 4) and sums
+// acc = sum_j sign(d_j) T[j][|d_j| - 1] with one mixed add per nonzero digit,
+// no doubling: at most 37 mixed adds (11 products each, the first one free),
+// about 400 products a lane, and every lane of a warp adds in every window
+// but where its digit is 0 (one in 128). A negative digit takes the entry
+// with y -> q - y (free in affine form).
+//
+// The mixed add keeps ec_madd_branch's cases. The accumulator before window j
+// is P = (sum_{i<j} d_i 2^(7i)) G with |sum| <= 64 (2^(7j) - 1) / 127, and the
+// entry is +-|d_j| 2^(7j) G. Below the top window (j <= 35) sum -+ d_j 2^(7j)
+// is nonzero and below 2^252 < r in size, so P is never the entry or its
+// negative. In the top window (2^252, digit at most 4) it can be: P == T
+// exactly when sum = 3 * 2^252 - r, that is for the one scalar s = 6 * 2^252 -
+// r (below r; its last digits are -3, 3), and ec_madd_branch then takes
+// dbl-2009-l of the entry. An opposite entry (Z = 0) would need s = 0 mod r,
+// whose digits are all 0. The tests hold that scalar among their edge cases.
+//
+// Bound on the H100: integer multiply issue (about 400 products of 272
+// 32-bit operations a lane; the table and the 64 bytes of scalar and 192 of
+// Jacobian sum a lane are a few percent of it). Design: one block of
+// COMB_THREADS an SM, persistent over the lanes, so the table is staged once
+// an SM; one thread a lane, the accumulator in registers, the scalar shifted
+// down seven bits a window (funnel shifts: the digit read from word 0, no
+// indexed registers); the products called out of line (MulCalled: 12.7-13.0
+// ms at [16, 2^20] against 14.8-15.5 ms inlined, PERF.md; dft_probe.py
+// --variants builds the inlined copy with -DG1_COMB_MUL=MulInline). Scal:
+// [16, n] canonical scalars; table:
+// [COMB_WINDOWS * COMB_HALF, 16] words, point-major (x words 0-7, y 8-15);
+// ox, oy, oz: [16, n] each lane's Jacobian sum.
+constexpr int COMB_W = 7;
+constexpr int COMB_HALF = 1 << (COMB_W - 1);
+constexpr int COMB_WINDOWS = (254 + COMB_W - 1) / COMB_W;
+constexpr int COMB_THREADS = 384;
+#ifndef G1_COMB_MUL
+#define G1_COMB_MUL MulCalled
+#endif
+static_assert(254 - COMB_W * (COMB_WINDOWS - 1) <= COMB_W - 1,
+              "the top window must absorb the last carry");
+
+__device__ __forceinline__ void load_entry(const int4* e, Fe& x, Fe& y) {
+  const int4 q0 = e[0], q1 = e[1], q2 = e[2], q3 = e[3];
+  x.w[0] = q0.x, x.w[1] = q0.y, x.w[2] = q0.z, x.w[3] = q0.w;
+  x.w[4] = q1.x, x.w[5] = q1.y, x.w[6] = q1.z, x.w[7] = q1.w;
+  y.w[0] = q2.x, y.w[1] = q2.y, y.w[2] = q2.z, y.w[3] = q2.w;
+  y.w[4] = q3.x, y.w[5] = q3.y, y.w[6] = q3.z, y.w[7] = q3.w;
+}
+
+__global__ void __launch_bounds__(COMB_THREADS, 1)
+g1_fixed_mul_k(const int32_t* __restrict__ scal, const int4* __restrict__ table,
+               int32_t* __restrict__ ox, int32_t* __restrict__ oy, int32_t* __restrict__ oz,
+               int64_t n) {
+  extern __shared__ int4 tab[];  // [COMB_WINDOWS * COMB_HALF * 4]
+  for (int i = threadIdx.x; i < COMB_WINDOWS * COMB_HALF * 4; i += blockDim.x)
+    tab[i] = __ldg(table + i);
+  __syncthreads();
+  const int64_t stride = (int64_t)gridDim.x * blockDim.x;
+  for (int64_t e = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; e < n; e += stride) {
+    Fe s = load(scal, 1, n, 0, e);
+    Jac acc = identity();
+    uint32_t carry = 0;
+    for (int j = 0; j < COMB_WINDOWS; j++) {
+      const uint32_t d = (s.w[0] & ((1u << COMB_W) - 1)) + carry;
+#pragma unroll
+      for (int k = 0; k < 7; k++) s.w[k] = __funnelshift_r(s.w[k], s.w[k + 1], COMB_W);
+      s.w[7] >>= COMB_W;
+      carry = d > COMB_HALF;
+      const uint32_t mag = carry ? (1u << COMB_W) - d : d;
+      if (mag) {
+        Fe x2, y2;
+        load_entry(tab + (j * COMB_HALF + mag - 1) * 4, x2, y2);
+        if (carry) y2 = sub<FQ>(zero(), y2);
+        acc = ec_madd_branch(acc, x2, y2, G1_COMB_MUL());
+      }
+    }
+    store(ox, 16, n, 0, 0, e, acc.x);
+    store(oy, 16, n, 0, 0, e, acc.y);
+    store(oz, 16, n, 0, 0, e, acc.z);
+  }
+}
+
+// scal: [16, n] canonical scalars; table: [COMB_WINDOWS * COMB_HALF, 16]
+// words of the base's comb table; ox, oy, oz: [16, n].
+extern "C" int h2_g1_batch_mul(const int32_t* scal, const int32_t* table, int32_t* ox,
+                               int32_t* oy, int32_t* oz, int64_t n, void* stream) {
+  if (n <= 0) return (int)cudaGetLastError();
+  int dev = 0, sms = 0;
+  int rc = (int)cudaGetDevice(&dev);
+  if (rc) return rc;
+  rc = (int)cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (rc) return rc;
+  const size_t smem = (size_t)COMB_WINDOWS * COMB_HALF * 64;
+  // the shared-memory limit, set once a device (a host call a launch saves)
+  static std::atomic<bool> attr_set[64];
+  if (dev >= 64) return (int)cudaErrorInvalidDevice;
+  if (!attr_set[dev]) {
+    rc = (int)cudaFuncSetAttribute(g1_fixed_mul_k, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                   (int)smem);
+    if (rc) return rc;
+    attr_set[dev] = true;
+  }
+  const int64_t need = (n + COMB_THREADS - 1) / COMB_THREADS;
+  const unsigned blocks = (unsigned)(need < sms ? need : sms);
+  g1_fixed_mul_k<<<blocks, COMB_THREADS, smem, (cudaStream_t)stream>>>(
+      scal, reinterpret_cast<const int4*>(table), ox, oy, oz, n);
   return (int)cudaGetLastError();
 }

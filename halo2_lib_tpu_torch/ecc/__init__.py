@@ -1,3 +1,3 @@
 """halo2-ecc equivalent layer (host code, copied from ``halo2_lib_tpu/ecc``):
-non-native bigint arithmetic, emulated prime fields, elliptic-curve chips and
-ECDSA. The pairing modules are not ported yet."""
+non-native bigint arithmetic, emulated prime fields, elliptic-curve chips,
+ECDSA, and the BN254 pairing."""

@@ -28,10 +28,14 @@ wrapper            replaces (halo2_lib_tpu/ops/pallas_field.py)    source
 ``commit_dbl_add`` ``_ec_double_kernel`` + ``_ec_madd_kernel`` scan,   ``ec_kernels.cu``
                    then the ``_ec_add_kernel`` lane tree
 ``g1_batch_mul``   ``_ec_double_kernel`` + ``_ec_add_kernel`` scan of   ``ec_kernels.cu``
-                   the SRS setup (every lane times G)
+                   the SRS setup (every lane times G), as a
+                   fixed-base comb
 ``dft_stage``      no pallas_call: the XLA module ``ntt_mxu.py``'s     ``dft_kernels.cu``
                    ``_stage_limbs`` + ``_fold_mod_p`` (one stage
                    of the digit-plane DFT, with its diagonals)
+``dft_ntt``        the same module's whole ``_transform`` up to       ``dft_kernels.cu``
+                   2^11 points (both stages, the twiddle, the
+                   transpose) in one launch
 =================  =============================================  ==========================
 
 ``bucket_sums_fused``, ``bucket_weight`` and ``msm_combine`` fuse what a
@@ -43,16 +47,18 @@ reference off the MSM's path), the weighted bucket reduction and the window
 combine, each in the loops' order. ``commit_dbl_add`` fuses the small-column
 commit (``halo2_lib_tpu/backend/kzg.py:499-519``: 254 scan steps of a
 doubling and a selected mixed add, then ``tree_reduce``) into two launches;
-``g1_batch_mul`` is the SRS setup's per-lane double-and-add of the generator
-(``halo2_lib_tpu/backend/kzg.py:635-661``, a scan of ``_double`` and the
-complete ``_add``): commit_dbl_add's chain launch alone, its mixed add
-taking G in every lane. ``ec_double``, ``ec_madd`` and ``ec_add`` stay as
-the checked literal ports, off every path. ``fermat_inv`` computes the
+``g1_batch_mul`` computes the SRS setup's multiples of the generator
+(``halo2_lib_tpu/backend/kzg.py:635-661``, a per-lane scan of ``_double``
+and the complete ``_add``) as a fixed-base comb: signed 7-bit digits, one
+mixed add a digit from a table of the generator's multiples, no doubling.
+``ec_double``, ``ec_madd`` and ``ec_add`` stay as the checked literal
+ports, off every path. ``fermat_inv`` computes the
 Fermat kernel's function (the Montgomery-form inverse) by a binary-GCD
 inversion (safegcd divsteps). ``dft_stage`` is the one stage of
 ``ops/ntt_mxu.py``'s MxuNTT: the 32 x 32 digit-pair products of the DFT
 matrix and the input on the integer tensor cores (u8 x u8 -> s32), folded
-into 63 columns and reduced mod p in the kernel.
+into 63 columns and reduced mod p in the kernel; ``dft_ntt`` runs a whole
+transform of 2^6..2^11 points, both stages, in one launch.
 
 They are compiled with ``nvcc`` for ``sm_90a`` into one shared library with
 a plain C interface, at first use, under ``halo2_lib_tpu_torch/_build/``
@@ -107,6 +113,7 @@ KERNELS = (
     "commit_dbl_add",
     "g1_batch_mul",
     "dft_stage",
+    "dft_ntt",
 )
 # launches of each kernel since the last reset_launches(), and the operand
 # shapes of each kernel's largest launch in that time (chip_smoke.py times
@@ -166,39 +173,45 @@ def _source_hash() -> str:
     return h.hexdigest()[:16]
 
 
-def build(verbose: bool = False) -> str:
+def build() -> str:
     """Compile csrc/ into ``_build/libh2_<hash>.so`` unless it exists; one
     ``nvcc`` per source, all started together, then one link. Returns the
-    library's path."""
+    library's path; ptxas's report of every kernel (registers, spills) lies
+    beside it (ptxas_log)."""
     os.makedirs(BUILD_DIR, exist_ok=True)
     so = os.path.join(BUILD_DIR, f"libh2_{_source_hash()}.so")
     if os.path.exists(so):
         return so
     nvcc = _nvcc()
     tmp = tempfile.mkdtemp(dir=BUILD_DIR)
-    extra = ["-Xptxas", "-v"] if verbose else []
 
     def compile_one(src):
         obj = os.path.join(tmp, src.replace(".cu", ".o"))
-        cmd = [nvcc, *NVCC_FLAGS, *extra, "-c", os.path.join(CSRC_DIR, src), "-o", obj]
+        cmd = [nvcc, *NVCC_FLAGS, "-Xptxas", "-v", "-c", os.path.join(CSRC_DIR, src), "-o", obj]
         res = subprocess.run(cmd, capture_output=True, text=True)
         if res.returncode != 0:
             raise RuntimeError(f"nvcc failed on {src}:\n{res.stdout}\n{res.stderr}")
-        if verbose:
-            print(res.stderr, flush=True)
-        return obj
+        return obj, res.stderr
 
     with ThreadPoolExecutor(len(SOURCES)) as ex:
-        objs = list(ex.map(compile_one, SOURCES))
+        objs, reports = zip(*ex.map(compile_one, SOURCES))
     tmp_so = os.path.join(tmp, "lib.so")
     res = subprocess.run(
         [nvcc, *NVCC_FLAGS, "-shared", *objs, "-o", tmp_so], capture_output=True, text=True
     )
     if res.returncode != 0:
         raise RuntimeError(f"nvcc link failed:\n{res.stdout}\n{res.stderr}")
+    with open(so[: -len(".so")] + ".ptxas", "w") as f:
+        f.write("\n".join(reports))
     os.replace(tmp_so, so)
     shutil.rmtree(tmp, ignore_errors=True)
     return so
+
+
+def ptxas_log() -> str:
+    """ptxas's report (-v) of the library's build, built first if need be."""
+    with open(build()[: -len(".so")] + ".ptxas") as f:
+        return f.read()
 
 
 def _lib():
@@ -226,13 +239,16 @@ def _lib():
         lib.h2_bucket_weight.argtypes = [P] * 6 + [I64, I64, I, P]
         lib.h2_msm_combine.argtypes = [P] * 6 + [I64, I, I, P]
         lib.h2_commit_dbl_add.argtypes = [P] * 3 + [I64] + [P] * 4 + [I64, I64, P]
-        lib.h2_g1_batch_mul.argtypes = [P] * 6 + [I64, P]
+        lib.h2_g1_batch_mul.argtypes = [P] * 5 + [I64, P]
+        lib.h2_g1_chain_bench.argtypes = [P] * 6 + [I64, P]
         lib.h2_dft_stage.argtypes = [I, P, P, P, P, I64, P, I64, I64, I64, I64, P]
+        lib.h2_dft_ntt.argtypes = [I] + [P] * 6 + [I64, P, P, I64, I64, I64, P]
         for fn in (
             "h2_mont_mul", "h2_field_add", "h2_field_sub", "h2_fermat_inv",
             "h2_ntt_butterfly", "h2_ntt_small", "h2_colntt", "h2_ec_add", "h2_ec_double", "h2_ec_madd",
             "h2_bucket_scan", "h2_bucket_sums", "h2_bucket_weight", "h2_msm_combine",
-            "h2_commit_dbl_add", "h2_g1_batch_mul", "h2_mul_chain", "h2_dft_stage",
+            "h2_commit_dbl_add", "h2_g1_batch_mul", "h2_g1_chain_bench", "h2_mul_chain",
+            "h2_dft_stage", "h2_dft_ntt",
         ):
             getattr(lib, fn).restype = I
         _LIB = lib
@@ -692,6 +708,24 @@ def dft_stage_plain(fid: int, x, planes, pre=None, post=None):
     return out.reshape(L, N_LIMBS, Ro, C).contiguous()
 
 
+def dft_two_stages(stage, fid: int, x, w1, w2, tw, pre=None, post=None):
+    """A base transform of MxuNTT as two calls of `stage` (dft_stage or
+    dft_stage_plain): stage 1 with pre and the twiddle, the transpose, stage
+    2 with post. x [L, 16, N1 N2] -> canonical [L, 16, N1 N2], natural order."""
+    L, N1, N2 = x.shape[0], w1.shape[1], w2.shape[1]
+    X = x.reshape(L, N_LIMBS, N1, N2)
+    A = stage(fid, X, w1, None if pre is None else pre.reshape(N_LIMBS, N1, N2), tw)
+    Bt = A.transpose(2, 3).contiguous()  # [L, 16, N2(c), N1(k1)]
+    if post is not None and post.shape[-1] != 1:
+        post = post.reshape(N_LIMBS, N2, N1)
+    return stage(fid, Bt, w2, None, post).reshape(L, N_LIMBS, N1 * N2)
+
+
+def dft_ntt_plain(fid: int, x, w1, w2, tw, pre=None, post=None):
+    """dft_ntt's function in torch ops: dft_two_stages of dft_stage_plain."""
+    return dft_two_stages(dft_stage_plain, fid, x, w1, w2, tw, pre, post)
+
+
 def _mmk(c, *pairs):
     """Stacked Montgomery products of (a, b) pairs of [16, N] rows."""
     N = pairs[0][0].shape[1]
@@ -1068,12 +1102,81 @@ def commit_dbl_add_plain(scalars, Ax, Ay):
     return tuple(t.to(torch.int32) for t in _tree64(_chains64(s, x2, y2, c), m, c))
 
 
+# --- the fixed-base comb of g1_batch_mul ------------------------------------------------
+
+# signed COMB_W-bit digits of a 254-bit scalar, low window first, one window
+# for every COMB_W bits: the top window (bits 252-253 and the last carry)
+# never carries out; a window's table holds d 2^(COMB_W j) G, d = 1..COMB_HALF
+COMB_W = 7
+COMB_HALF = 1 << (COMB_W - 1)
+COMB_WINDOWS = -(-254 // COMB_W)
+assert 254 - COMB_W * (COMB_WINDOWS - 1) <= COMB_W - 1
+
+_COMB_TABLES: dict = {}
+
+
+def g1_comb_table(Gx, Gy) -> torch.Tensor:
+    """The comb table of the affine base (Gx, Gy) (int32[16, 1] Montgomery
+    limbs, not the identity): int32[COMB_WINDOWS * COMB_HALF, 16] words in
+    pack_bases' layout, entry j * COMB_HALF + d - 1 the Montgomery affine
+    point d 2^(COMB_W j) G, on the base's device. Built with exact host ints
+    once per base and device, then cached."""
+    from ..utils.curves import BN254_G1
+
+    q = FQ_BN254.p
+    g = tuple(sum(int(v) << (16 * i) for i, v in enumerate(t.reshape(-1).tolist()))
+              * pow(1 << 256, -1, q) % q for t in (Gx, Gy))
+    key = (str(Gx.device), g)
+    if key not in _COMB_TABLES:
+        pts, base = [], g
+        for _ in range(COMB_WINDOWS):
+            acc = base
+            for d in range(1, COMB_HALF + 1):
+                pts.append(acc)
+                acc = BN254_G1.add(acc, base)
+            base = BN254_G1.double(pts[-1])  # 2^COMB_W times the window's base
+        words = np.array([[((c << 256) % q >> (32 * k)) & 0xFFFFFFFF for c in pt for k in range(8)]
+                          for pt in pts], dtype=np.uint32)
+        _COMB_TABLES[key] = torch.from_numpy(words.view(np.int32)).to(Gx.device)
+    return _COMB_TABLES[key]
+
+
+def comb_digits(s: torch.Tensor) -> list:
+    """[16, N] canonical scalar limbs (int64) -> per window j, (|d_j|, d_j <
+    0) as [N] tensors: the signed digits g1_batch_mul's kernel recodes, low
+    window first (d = the window's bits + carry; d - 2^COMB_W and a carry of
+    one where d > COMB_HALF)."""
+    out, carry = [], torch.zeros_like(s[0])
+    for j in range(COMB_WINDOWS):
+        limb, off = divmod(COMB_W * j, 16)
+        v = s[limb] >> off
+        if off + COMB_W > 16 and limb + 1 < N_LIMBS:
+            v = v | (s[limb + 1] << (16 - off))
+        d = (v & ((1 << COMB_W) - 1)) + carry
+        neg = d > COMB_HALF
+        out.append((torch.where(neg, (1 << COMB_W) - d, d), neg))
+        carry = neg.to(torch.int64)
+    return out
+
+
 def g1_batch_mul_plain(scalars, Gx, Gy):
-    """The chains of commit_dbl_add_plain with one base for every lane."""
+    """The comb of g1_batch_mul on int64 rows, in the kernel's order: the same
+    table and digits, and per window ec_madd64 with its doubling branch (the
+    cases of the kernel's ec_madd_branch) on the digit's entry, y negated for
+    a negative digit, (0, 0) for a digit 0 (which leaves the sum as it is)."""
     n = scalars.shape[1]
     c = _consts(FQ, scalars.device)
-    x2, y2 = (t.to(torch.int64).expand(N_LIMBS, n) for t in (Gx, Gy))
-    return tuple(t.to(torch.int32) for t in _chains64(scalars.to(torch.int64), x2, y2, c))
+    tx, ty = unpack_point_words(g1_comb_table(Gx, Gy))
+    zero = torch.zeros((N_LIMBS, n), dtype=torch.int64, device=scalars.device)
+    acc = (zero, zero, zero)
+    for j, (mag, neg) in enumerate(comb_digits(scalars.to(torch.int64))):
+        idx = j * COMB_HALF + (mag - 1).clamp(min=0)
+        live = mag > 0
+        x2 = torch.where(live, tx[:, idx], zero)
+        y2 = ty[:, idx]
+        y2 = torch.where(live, torch.where(neg, sub64(zero, y2, c), y2), zero)
+        acc = ec_madd64(acc, x2, y2, False, c)
+    return tuple(t.to(torch.int32) for t in acc)
 
 
 # --- wrappers ------------------------------------------------------------------------
@@ -1470,21 +1573,20 @@ def commit_dbl_add(scalars, Ax, Ay):
 
 
 def g1_batch_mul(scalars, Gx, Gy):
-    """s_i * G for every lane i: the per-lane double-and-add of the SRS setup.
+    """s_i * G for every lane i: the SRS setup's multiples of one base.
 
     scalars: int32[16, n] canonical (not Montgomery) Fr scalars; (Gx, Gy):
     int32[16, 1] the Montgomery affine base every lane multiplies (not the
-    identity). Returns Jacobian (X, Y, Z), each int32[16, n]: for bit 253
-    down to 0 a doubling and, where the bit is 1, the mixed add with its
-    doubling branch, so the same affine points as the JAX package's scan of
-    ``_double`` and the complete ``_add`` (``halo2_lib_tpu/backend/kzg.py:
-    635-661``), whose Jacobian triples differ (it adds G with Z = 1 by the
-    complete formula).
+    identity). Returns Jacobian (X, Y, Z), each int32[16, n]: a fixed-base
+    comb, per lane the sum of sign(d_j) d_j 2^(7j) G over its signed 7-bit
+    digits (comb_digits), one mixed add with its doubling branch a nonzero
+    digit from the table g1_comb_table, no doubling. The same affine points
+    as the JAX package's scan of ``_double`` and the complete ``_add``
+    (``halo2_lib_tpu/backend/kzg.py:635-661``), whose Jacobian triples differ.
 
-    On the card, one launch of commit_dbl_add's chain kernel (one thread a
-    lane, the accumulator in registers), G read by every lane (a base stride
-    of 0, so no [16, n] copy of it). Bound by one thread's chain: 254
-    doublings of 7 Montgomery products and a mixed add of 11 per set bit."""
+    On the card, one launch: one block an SM, its table (151,552 bytes) in
+    shared memory, one thread a lane with the accumulator in registers. Bound
+    by the products: at most 37 mixed adds of 11 a lane."""
     if scalars.dim() != 2 or scalars.shape[0] != N_LIMBS:
         raise ValueError(f"expected scalars [16, n], got {tuple(scalars.shape)}")
     if Gx.shape != (N_LIMBS, 1) or Gy.shape != (N_LIMBS, 1):
@@ -1492,12 +1594,27 @@ def g1_batch_mul(scalars, Gx, Gy):
     if _on_cpu(scalars, Gx, Gy):
         return g1_batch_mul_plain(scalars, Gx, Gy)
     n = scalars.shape[1]
-    sc, gx, gy = scalars.contiguous(), Gx.contiguous(), Gy.contiguous()
+    sc = scalars.contiguous()
     outs = [torch.empty((N_LIMBS, n), dtype=torch.int32, device=sc.device) for _ in range(3)]
     if n == 0:
         return tuple(outs)
-    _launch("g1_batch_mul", sc, _ptr(sc), _ptr(gx), _ptr(gy), *map(_ptr, outs), n)
+    table = g1_comb_table(Gx, Gy)
+    _launch("g1_batch_mul", sc, _ptr(sc), _ptr(table), *map(_ptr, outs), n)
     _count("g1_batch_mul", n, (tuple(sc.shape),))
+    return tuple(outs)
+
+
+def g1_chain_bench(scalars, Gx, Gy):
+    """The per-lane double-and-add g1_batch_mul launched before the comb
+    (commit_dbl_add's chain kernel with G in every lane), for chip_smoke.py
+    to time beside the comb: CUDA tensors only, not a path kernel, no launch
+    count. Same affine points as g1_batch_mul, other Jacobian triples."""
+    if scalars.device.type != "cuda":
+        raise ValueError("g1_chain_bench runs on the card only")
+    n = scalars.shape[1]
+    sc, gx, gy = scalars.contiguous(), Gx.contiguous(), Gy.contiguous()
+    outs = [torch.empty((N_LIMBS, n), dtype=torch.int32, device=sc.device) for _ in range(3)]
+    _launch("g1_chain_bench", sc, _ptr(sc), _ptr(gx), _ptr(gy), *map(_ptr, outs), n)
     return tuple(outs)
 
 
@@ -1546,4 +1663,62 @@ def dft_stage(fid: int, x, planes, pre=None, post=None):
     _launch("dft_stage", out, fid, _ptr(xc), _ptr(pc), None if prc is None else _ptr(prc),
             None if poc is None else _ptr(poc), post_n, _ptr(out), L, R, Ro, C)
     _count("dft_stage", L * C * R * Ro, (tuple(xc.shape), Ro, pre is not None, post_n))
+    return out
+
+
+# base transforms dft_ntt takes in one launch: n = N1 N2 <= 2^11 points,
+# 8 <= N2 <= N1 (N2 <= 32: stage 2's contraction is one 32-byte chunk)
+DFT_NTT_MAX_N = 1 << 11
+
+
+def dft_ntt(fid: int, x, w1, w2, tw, pre=None, post=None):
+    """A whole base transform of MxuNTT in one launch: every column of x
+    int32[L, 16, n] (natural order, Montgomery), n = N1 N2,
+
+        A[k1, c] = sum_r W1[k1, r] * (pre * x)[r N2 + c],  B = A * tw,
+        out[k1 + N1 k2] = post * sum_c W2[k2, c] * B[k1, c]  mod p,
+
+    canonical int32[L, 16, n] in natural order. w1, w2: uint8[32, N1, N1],
+    [32, N2, N2] the digit planes of the stages' canonical DFT matrices; tw:
+    [16, N1, N2] the Montgomery twiddle; pre [16, n] and post [16, n] or
+    [16, 1] optional Montgomery diagonals. 8 <= N2 <= N1, n <= 2^11. On the
+    card one launch: a block a column and 8 rows k1, both stages in shared
+    memory, a column's blocks one cluster that shares the staging of its
+    digits through a scratch panel in device memory. Its plain version is
+    dft_stage_plain, the transpose and dft_stage_plain."""
+    if x.dim() != 3 or x.shape[1] != N_LIMBS:
+        raise ValueError(f"expected columns [L, 16, n], got {tuple(x.shape)}")
+    L, _, n = x.shape
+    for w in (w1, w2):
+        if w.dtype != torch.uint8 or w.dim() != 3 or w.shape[0] != DFT_DIGITS or w.shape[1] != w.shape[2]:
+            raise ValueError(f"expected uint8 planes [32, N, N], got {w.dtype} {tuple(w.shape)}")
+    N1, N2 = w1.shape[1], w2.shape[1]
+    if N1 * N2 != n or not 8 <= N2 <= N1 or n > DFT_NTT_MAX_N or N1 & (N1 - 1) or N2 & (N2 - 1):
+        raise ValueError(f"planes of {N1} and {N2} points for n = {n} (8 <= N2 <= N1, n <= "
+                         f"{DFT_NTT_MAX_N}, powers of two)")
+    if tuple(tw.shape) != (N_LIMBS, N1, N2):
+        raise ValueError(f"twiddle {tuple(tw.shape)} != {(N_LIMBS, N1, N2)}")
+    if pre is not None and tuple(pre.shape) != (N_LIMBS, n):
+        raise ValueError(f"pre diagonal {tuple(pre.shape)} != {(N_LIMBS, n)}")
+    if post is not None and tuple(post.shape) not in ((N_LIMBS, n), (N_LIMBS, 1)):
+        raise ValueError(f"post diagonal {tuple(post.shape)} is neither [16, {n}] nor [16, 1]")
+    if w1.device != x.device or w2.device != x.device:
+        raise ValueError(f"planes on {w1.device}, {w2.device}, columns on {x.device}")
+    if _on_cpu(*(t for t in (x, tw, pre, post) if t is not None)):
+        return dft_ntt_plain(fid, x, w1, w2, tw, pre, post)
+    xc, w1c, w2c, twc = x.contiguous(), w1.contiguous(), w2.contiguous(), tw.contiguous()
+    prc = None if pre is None else pre.contiguous()
+    poc = None if post is None else post.contiguous()
+    out = torch.empty_like(xc)
+    if L == 0:
+        return out
+    post_n = 0 if poc is None else poc.shape[1]
+    # each column's digit panel in device memory, where its cluster of
+    # blocks exchanges the rows each staged
+    scratch = torch.empty(L * 32 * -(-N1 // 32) * max(N2, 16) * 8, dtype=torch.int32,
+                          device=xc.device)
+    _launch("dft_ntt", out, fid, _ptr(xc), _ptr(w1c), _ptr(w2c), _ptr(twc),
+            None if prc is None else _ptr(prc), None if poc is None else _ptr(poc), post_n,
+            _ptr(out), _ptr(scratch), L, N1, N2)
+    _count("dft_ntt", L * n * (N1 + N2), ((L, N_LIMBS, n), pre is not None, post_n))
     return out

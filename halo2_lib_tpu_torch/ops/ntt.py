@@ -249,7 +249,7 @@ def new_ntt(df: DeviceField, log_n: int, device):
     """NTT factory, by the JAX package's rule (halo2_lib_tpu/ops/ntt.py:
     263-285) with the accelerator read as a CUDA device: the four-step
     transform from 2^12 points up; on a CUDA device the digit-plane DFT
-    (ops/ntt_mxu.py, two dft_stage launches a call) for 2^6..2^11 points
+    (ops/ntt_mxu.py, one dft_ntt launch a call) for 2^6..2^11 points
     unless HALO2_NO_MXU_NTT=1; radix-2 Stockham (one ntt_small launch)
     otherwise, and on the CPU. All give the same values."""
     device = torch.device(device)

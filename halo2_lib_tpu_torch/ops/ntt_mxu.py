@@ -11,15 +11,17 @@ factors are at most 256 up to 2^16 points):
 Field elements do not fit a matrix unit, so each 256-bit value is split into
 32 8-bit digits, the DFT matrix W (canonical) into 32 digit planes, and a
 stage sums the 32 x 32 digit-pair products into 63 columns of weight
-2^(8t) and reduces them mod p. On the card a stage is one ``dft_stage``
-launch (ops/cuda_field.py, csrc/dft_kernels.cu): the pair products on the
-integer tensor cores (u8 x u8 -> s32, exact: every column sum stays below
-2^29), the fold mod p in the kernel, and the diagonals in its load and
-store: the forward coset's shift powers (``pre``) in stage 1's load, the
-twiddle in stage 1's store, and the inverse's 1/n or an inverse coset's
-``post`` in stage 2's store. The transposes between the stages are torch
-copies. Above 2^16 points one outer four-step level runs over two
-sub-transforms, with its twiddle (and any diagonal) as mont_mul launches.
+2^(8t) and reduces them mod p: the pair products on the integer tensor
+cores (u8 x u8 -> s32, exact: every column sum stays below 2^29), the fold
+mod p in the kernel, and the diagonals in the loads and stores: the forward
+coset's shift powers (``pre``) in stage 1's load, the twiddle in stage 1's
+store, and the inverse's 1/n or an inverse coset's ``post`` in stage 2's
+store. On the card a base transform of 2^6..2^11 points is one ``dft_ntt``
+launch (ops/cuda_field.py, csrc/dft_kernels.cu: both stages in shared
+memory, no transpose); a larger one two ``dft_stage`` launches with a torch
+transpose between them. Above 2^16 points one outer four-step level runs
+over two sub-transforms, with its twiddle (and any diagonal) as mont_mul
+launches.
 
 Layout as ``ops/ntt.py``'s NTT: limb-major Montgomery ``int32[..., 16, n]``,
 natural order in and out, canonical outputs, the same API (``forward(x,
@@ -60,8 +62,8 @@ def dft_planes_np(p: int, root: int, R: int) -> np.ndarray:
 
 class MxuNTT:
     """NTT/INTT of size 2^log_n over Fr by digit-plane DFT stages, on
-    limb-major [..., 16, n] tensors on `device`: two dft_stage launches a
-    call up to 2^16 points."""
+    limb-major [..., 16, n] tensors on `device`: one dft_ntt launch a call
+    for 2^6..2^11 points, two dft_stage launches up to 2^16."""
 
     CHUNK = None  # forward_cols/inverse_cols: every column in one call
 
@@ -111,13 +113,9 @@ class MxuNTT:
         N1, N2 = 1 << self.k1, 1 << self.k2
         if self.sub is None:
             tw, w1, w2 = self._consts[forward]
-            X = x.reshape(L, N_LIMBS, N1, N2)
-            A = cf.dft_stage(fid, X, w1, None if pre is None else pre.reshape(N_LIMBS, N1, N2), tw)
-            Bt = A.transpose(2, 3).contiguous()  # [L, 16, N2(c), N1(k1)]
-            if post is not None and post.shape[-1] != 1:
-                post = post.reshape(N_LIMBS, N2, N1)
-            O = cf.dft_stage(fid, Bt, w2, None, post)  # [L, 16, N2(k2), N1(k1)]
-            return O.reshape(L, N_LIMBS, self.n)
+            if N2 >= 8 and self.n <= cf.DFT_NTT_MAX_N:  # 2^6..2^11: one launch
+                return cf.dft_ntt(fid, x, w1, w2, tw, pre, post)
+            return cf.dft_two_stages(cf.dft_stage, fid, x, w1, w2, tw, pre, post)
         # the outer four-step level over two base transforms (ntt_mxu.py:277-289)
         sub1, sub2 = self.sub
         (tw,) = self._consts[forward]

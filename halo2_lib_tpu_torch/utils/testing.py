@@ -420,3 +420,55 @@ def poseidon_logic(pool, range_chip, inputs):
     safe.load_bool(ctx, flag)
     safe.load_byte(ctx, byte)
     return h_fix, h_var
+
+
+def comb_edge_scalars() -> dict[str, int]:
+    """Scalars that meet each case of g1_batch_mul's comb (ops/cuda_field.py
+    comb_digits; 7-bit windows, digits in (-64, 64]), by name."""
+    from ..ops.cuda_field import COMB_HALF, COMB_W, COMB_WINDOWS
+
+    r = FR_BN254.p
+    top = COMB_W * (COMB_WINDOWS - 1)  # bit 252, the top window's first
+    every = lambda v: sum(v << (COMB_W * j) for j in range(COMB_WINDOWS - 1))  # noqa: E731
+    mid = COMB_W * (COMB_WINDOWS // 2)
+    rnd = random.Random(0xC0B).randrange(r)
+    return {
+        "zero": 0,
+        "one": 1,
+        "two": 2,
+        "r - 1": r - 1,
+        # window 35 = 127: its digit -1 carries into the top window (2 -> 3)
+        "carry into the top window": (2 << top) + (127 << (top - COMB_W)),
+        # every window 127: a carry through all of them (2^253 - 1)
+        "carry through every window": (1 << 253) - 1,
+        # every digit +64, the top one 1
+        "every digit +64": every(COMB_HALF) + (1 << top),
+        # window 0 = 65, the others 64 with the carry: every digit -63 (the
+        # most negative), the top one 2
+        "every digit -63": every(COMB_HALF) + 1 + (1 << top),
+        # a middle window 0 with no carry in (a digit 0 amid nonzero ones)
+        "a digit 0 in the middle": rnd & ~(((1 << (2 * COMB_W)) - 1) << (mid - COMB_W))
+        | (5 << (mid - COMB_W)),
+        # a middle window 127 with a carry in: d = 128, digit 0, carry out
+        "a digit 0 from a carry": (rnd & ~(((1 << (2 * COMB_W)) - 1) << (mid - COMB_W)))
+        | (127 << mid) | (100 << (mid - COMB_W)),
+        # the one scalar whose top window adds its own entry (the doubling
+        # branch): the lower windows sum to 3 * 2^252 - r, the top digit is 3
+        "the top entry doubled": 6 * (1 << top) - r,
+    }
+
+
+def old_g1_batch_mul(scalars, Gx, Gy):
+    """g1_batch_mul's plain version before the comb, the old reference the
+    comb is held to in affine form: per lane, 254 doublings of G from the
+    top bit and a mixed add where the bit is 1 (the chains of
+    commit_dbl_add_plain with G in every lane) -> Jacobian (X, Y, Z)
+    int32[16, n]; the comb's affine points, other triples."""
+    import torch
+
+    from ..ops import cuda_field as cf
+
+    n = scalars.shape[1]
+    c = cf._consts(cf.FQ, scalars.device)
+    x2, y2 = (t.to(torch.int64).expand(16, n) for t in (Gx, Gy))
+    return tuple(t.to(torch.int32) for t in cf._chains64(scalars.to(torch.int64), x2, y2, c))

@@ -181,12 +181,25 @@ def test_dft_stage(dev, R, C):
         assert torch.equal(got, cf.dft_stage_plain(cf.FR, x, planes, pre, post))
 
 
-@pytest.mark.parametrize("log_n", [6, 7, 8, 9, 10, 11, 15, 17])
+def _mxu_launches(log_n: int) -> dict:
+    """dft_ntt and dft_stage launches of one MxuNTT call: one dft_ntt up to
+    2^11 points, two dft_stage for a base transform above, and over the
+    outer four-step level (above 2^16) its two sub-transforms' own."""
+    if log_n <= 11:
+        return {"dft_ntt": 1, "dft_stage": 0}
+    if log_n <= 16:
+        return {"dft_ntt": 0, "dft_stage": 2}
+    subs = [_mxu_launches(k) for k in (log_n // 2, log_n - log_n // 2)]
+    return {k: subs[0][k] + subs[1][k] for k in subs[0]}
+
+
+@pytest.mark.parametrize("log_n", [6, 7, 8, 9, 10, 11, 12, 15, 17])
 def test_mxu_ntt_on_the_card(dev, log_n):
     """MxuNTT against the radix-2 NTT (below 2^12) or the four-step one, on
-    the card, in all four forms the prover uses; two dft_stage launches a
-    call up to 2^16 points (four with the outer level at 2^17) and no
-    ntt_small; new_ntt picks it for 2^6..2^11."""
+    the card, in all four forms the prover uses; one dft_ntt launch a call
+    up to 2^11 points (no dft_stage, no ntt_small), two dft_stage above (the
+    sub-transforms' own over the outer level at 2^17); new_ntt picks it for
+    2^6..2^11."""
     from halo2_lib_tpu_torch.ops.ntt import NTT, FourStepNTT, new_ntt
     from halo2_lib_tpu_torch.ops.ntt_mxu import MxuNTT
 
@@ -201,12 +214,39 @@ def test_mxu_ntt_on_the_card(dev, log_n):
     cf.reset_launches()
     got = [mxu.forward(x), mxu.inverse(x), mxu.forward(x, pre=pre),
            mxu.inverse(x, post=mxu.inverse_post(7))]
-    assert cf.LAUNCHES["dft_stage"] == 4 * (2 if log_n <= 16 else 4)
+    want = _mxu_launches(log_n)
+    assert {k: cf.LAUNCHES[k] for k in want} == {k: 4 * v for k, v in want.items()}
     assert cf.LAUNCHES["ntt_small"] == 0
-    want = [ref.forward(x), ref.inverse(x), ref.forward(x, pre=pre),
-            ref.inverse(x, post=ref.inverse_post(7))]
-    for a, b in zip(got, want):
+    for a, b in zip(got, [ref.forward(x), ref.inverse(x), ref.forward(x, pre=pre),
+                          ref.inverse(x, post=ref.inverse_post(7))]):
         assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("log_n", range(6, 12))
+@pytest.mark.parametrize("C", [1, 3, 12, 105])
+def test_dft_ntt(dev, log_n, C):
+    """dft_ntt against its plain version (dft_stage_plain, the transpose,
+    dft_stage_plain) at 2^6..2^11 points and 1, 3, 12 and 105 columns, in
+    the four forms (forward, forward with the pre row, inverse with 1/n,
+    inverse with the post row), one launch each; p - 1 among the values."""
+    from halo2_lib_tpu_torch.ops.ntt_mxu import MxuNTT
+
+    df = DeviceField(FR_BN254)
+    n = 1 << log_n
+    gen = torch.Generator().manual_seed(900 + 10 * log_n + C)
+    mxu = MxuNTT(df, log_n, dev)
+    x = _rand((C, 16, n), FR_BN254.p, gen, dev)
+    x[0, :, 0] = torch.tensor([((FR_BN254.p - 1) >> (16 * j)) & 0xFFFF for j in range(16)],
+                              dtype=torch.int32, device=dev)
+    pre = _rand((16, n), FR_BN254.p, gen, dev)
+    fwd, inv = mxu._consts[True], mxu._consts[False]
+    forms = [(fwd, None, None), (fwd, pre, None), (inv, None, mxu.n_inv_mont),
+             (inv, None, mxu.inverse_post(7))]
+    for (tw, w1, w2), pr, po in forms:
+        cf.reset_launches()
+        got = cf.dft_ntt(cf.FR, x, w1, w2, tw, pr, po)
+        assert cf.LAUNCHES["dft_ntt"] == 1
+        assert torch.equal(got, cf.dft_ntt_plain(cf.FR, x, w1, w2, tw, pr, po))
 
 
 def test_ec_kernels(dev):
@@ -444,21 +484,30 @@ def test_commit_dbl_add(dev, C, m):
 
 @pytest.mark.parametrize("n", [1, 13, 300])
 def test_g1_batch_mul(dev, n):
-    """The SRS setup's per-lane double-and-add of G against its plain
-    version (Jacobian-equal), with scalars 0, 1 and r - 1, one launch."""
+    """The SRS setup's comb of G against its plain version (Jacobian-equal,
+    one launch) and, in affine form, against the old
+    per-lane double-and-add; scalars 0, 1, r - 1, then every edge scalar of
+    the comb (utils/testing.py comb_edge_scalars) where n leaves room."""
+    from halo2_lib_tpu_torch.backend.kzg import _affine_mont
+    from halo2_lib_tpu_torch.utils.testing import comb_edge_scalars, old_g1_batch_mul
+
     gen = torch.Generator().manual_seed(n)
     scal = _rand((16, n), FR_BN254.p, gen, "cpu")
     r = FR_BN254.p
-    for lane, v in enumerate((0, 1, r - 1)[:n]):
+    edge = [0, 1, r - 1] + list(comb_edge_scalars().values())
+    for lane, v in enumerate(edge[:n]):
         scal[:, lane] = torch.tensor([(v >> (16 * i)) & 0xFFFF for i in range(16)],
                                      dtype=torch.int32)
     dc = DeviceCurve(DeviceField(BN254_G1.base), BN254_G1)
     Gx, Gy = dc.pack_points_affine([BN254_G1.g], dev)
+    sc = scal.to(dev)
     cf.reset_launches()
-    got = cf.g1_batch_mul(scal.to(dev), Gx, Gy)
+    got = cf.g1_batch_mul(sc, Gx, Gy)
     assert cf.LAUNCHES["g1_batch_mul"] == 1
-    want = cf.g1_batch_mul_plain(scal.to(dev), Gx, Gy)
-    for a, b in zip(got, want):
+    for a, b in zip(got, cf.g1_batch_mul_plain(sc, Gx, Gy)):
+        assert torch.equal(a, b)
+    old = old_g1_batch_mul(sc, Gx, Gy)
+    for a, b in zip(_affine_mont(dc.df, *got), _affine_mont(dc.df, *old)):
         assert torch.equal(a, b)
 
 

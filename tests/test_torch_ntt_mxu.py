@@ -10,7 +10,9 @@ every comparison is bit for bit (limbs as little-endian uint32, tolerance
 (ntt_digests.json) at 2^6..2^10. A Python model of csrc/dft_kernels.cu's
 schedule (shared-memory staging, the m16n8k32 fragments, the warps'
 windows of columns, the epilogue's Montgomery fold) is held to the plain
-version, since the CPU cannot run the kernel. The live JAX comparison is
+version, since the CPU cannot run the kernel; so is a model of dft_ntt, the
+one-launch base transform (its swizzled panels, the digit staging and stage
+2's re-digitized operand), and its plain version to the frozen digests. The live JAX comparison is
 marked slow.
 """
 
@@ -233,8 +235,8 @@ def kernel_model(x, planes, pre=None, post=None) -> torch.Tensor:
     """dft_stage as csrc/dft_kernels.cu computes it, block by block and warp
     by warp: the staging loops (the weight words, the digit bytes), each lane's
     fragment addresses, the mma's fragment layouts, the column sums through
-    shared memory, and the epilogue (17 words, the 4p / 2p / p ladders, the
-    Montgomery products by R^2 and R^3). Field products by Python ints."""
+    shared memory, and the epilogue (the fold of _fold_model, the post
+    product). Field products by Python ints."""
     L, _, R, C = x.shape
     Ro = planes.shape[1]
     KW = -(-R // 32) * 8
@@ -242,7 +244,6 @@ def kernel_model(x, planes, pre=None, post=None) -> torch.Tensor:
     N = L * C
     xn, pn = x.numpy(), planes.numpy()
     out = np.zeros((L, 16, Ro, C), dtype=np.int64)
-    r2, r3 = R_MONT * R_MONT % P, R_MONT ** 3 % P
     for by in range(-(-Ro // TM)):
         m0 = by * TM
         for bx in range(-(-N // TN)):
@@ -299,24 +300,7 @@ def kernel_model(x, planes, pre=None, post=None) -> torch.Tensor:
                 k, nn = m0 + m, n0 + n
                 if k >= Ro or nn >= N:
                     continue
-                vw, carry = [0] * 17, 0
-                for t in range(68):
-                    v = (int(cs[t, e]) if t < 63 else 0) + carry
-                    assert v < 1 << 32
-                    vw[t >> 2] |= (v & 0xFF) << (8 * (t & 3))
-                    carry = v >> 8
-                assert carry == 0
-                a0 = sum(vw[j] << (32 * j) for j in range(8))
-                a1 = sum(vw[8 + j] << (32 * j) for j in range(8))
-                a2 = vw[16]
-
-                def reduce_256(a):
-                    for mp in (4 * P, 2 * P, P):
-                        a = a - mp if a >= mp else a
-                    return a
-
-                res = (reduce_256(a0) + _mont(reduce_256(a1), r2)) % P
-                res = (res + _mont(a2, r3)) % P
+                res = _fold_model(cs[:, e])
                 l, c = divmod(nn, C)
                 if post is not None:
                     pv = post.numpy()[:, 0] if post.dim() == 2 else post.numpy()[:, k, c]
@@ -349,6 +333,226 @@ def test_kernel_model_matches_plain(df, L, R, C, diag):
     want = cf.dft_stage_plain(cf.FR, x, planes, pre, post)
     assert torch.equal(kernel_model(x, planes, pre, post), want)
     assert torch.equal(cf.dft_stage(cf.FR, x, planes, pre, post), want)
+
+
+# --- dft_ntt: the whole base transform in one launch ---------------------------------
+
+
+def _ntt_consts(df, log_n: int):
+    """MxuNTT(log_n)'s tables (forward, inverse), the shift-7 coset rows and
+    1/n: dft_ntt's operands as MxuNTT passes them."""
+    mxu = MxuNTT(df, log_n, "cpu")
+    return mxu, mxu._consts[True], mxu._consts[False]
+
+
+def _ntt_forms(df, log_n: int, x: torch.Tensor) -> dict:
+    """dft_ntt_plain in the four forms the prover uses, by name."""
+    mxu, fwd, inv = _ntt_consts(df, log_n)
+    pre = pows_host(df, 7, mxu.n, "cpu")
+    post = mxu.inverse_post(pow(7, P - 2, P))
+    tw, w1, w2 = fwd
+    itw, iw1, iw2 = inv
+    return {
+        "forward": cf.dft_ntt_plain(cf.FR, x, w1, w2, tw),
+        "inverse": cf.dft_ntt_plain(cf.FR, x, iw1, iw2, itw, None, mxu.n_inv_mont),
+        "coset_forward": cf.dft_ntt_plain(cf.FR, x, w1, w2, tw, pre),
+        "coset_inverse": cf.dft_ntt_plain(cf.FR, x, iw1, iw2, itw, None, post),
+    }
+
+
+@pytest.mark.parametrize("log_n", range(6, 12))
+def test_dft_ntt_plain_matches_the_frozen_digests(df, mxu_digests, ntt_digests, log_n):
+    """dft_ntt_plain itself (forward, forward with pre, inverse with 1/n,
+    inverse with post) against the JAX MXU NTT's digests (2^6, 2^7, 2^9,
+    2^11) and the JAX Stockham NTT's (2^6..2^10)."""
+    x = torch.stack([df.pack(c) for c in ntt_inputs(log_n)])
+    got = {k: _digest(v) for k, v in _ntt_forms(df, log_n, x).items()}
+    held = [d[str(log_n)] for d in (mxu_digests, ntt_digests) if str(log_n) in d]
+    assert held and all(got == want for want in held)
+
+
+def test_dft_ntt_stops_at_2048_points(df, monkeypatch):
+    """Stage 2's contraction in dft_ntt is one 32-byte chunk (N2 <= 32): the
+    wrapper refuses MxuNTT(2^12)'s 64 x 64 planes before any dispatch, and
+    MxuNTT at 2^12 takes the two dft_stage calls instead, with the
+    four-step NTT's values."""
+    mxu = MxuNTT(df, 12, "cpu")
+    tw, w1, w2 = mxu._consts[True]
+    x = torch.stack([df.pack(c) for c in ntt_inputs(12, cols=1)])
+    with pytest.raises(ValueError, match="n <= 2048"):
+        cf.dft_ntt(cf.FR, x, w1, w2, tw)
+
+    def no_dft_ntt(*args, **kwargs):
+        raise AssertionError("MxuNTT(2^12) called dft_ntt")
+
+    monkeypatch.setattr(cf, "dft_ntt", no_dft_ntt)
+    assert torch.equal(mxu.forward(x), ntt_mod.FourStepNTT(df, 12, "cpu").forward(x))
+
+
+def _fold_model(col) -> int:
+    """dft_fold as the kernel runs it on one element's 63 column sums: the
+    carries into 17 words, the 4p / 2p / p ladders, the Montgomery products
+    by R^2 and R^3."""
+    vw, carry = [0] * 17, 0
+    for t in range(68):
+        v = (int(col[t]) if t < 63 else 0) + carry
+        assert v < 1 << 32
+        vw[t >> 2] |= (v & 0xFF) << (8 * (t & 3))
+        carry = v >> 8
+    assert carry == 0
+
+    def reduce_256(a):
+        for mp in (4 * P, 2 * P, P):
+            a = a - mp if a >= mp else a
+        return a
+
+    a0 = sum(vw[j] << (32 * j) for j in range(8))
+    a1 = sum(vw[8 + j] << (32 * j) for j in range(8))
+    res = (reduce_256(a0) + _mont(reduce_256(a1), R_MONT * R_MONT % P)) % P
+    return (res + _mont(vw[16], R_MONT ** 3 % P)) % P
+
+
+def _word(b) -> int:
+    return int(b[0]) | int(b[1]) << 8 | int(b[2]) << 16 | int(b[3]) << 24
+
+
+def ntt_kernel_model(x, w1, w2, tw, pre=None, post=None) -> torch.Tensor:
+    """dft_ntt as csrc/dft_kernels.cu computes it, block by block (KT = 8
+    rows k1 each) and lane by lane: the swizzled panels (w ^ (row & 4)), the weight words, the digit
+    staging shared by a column's cluster (each block's own rows, written to
+    the column's panel in device memory, which every block copies back),
+    each lane's fragment words in
+    both stages, the column sums of up to two tiles, the fold, the twiddle
+    and stage 2's re-digitized B (BB's bytes), the post product and the
+    natural-order store."""
+    L, _, n = x.shape
+    N1, N2 = w1.shape[1], w2.shape[1]
+    NQ1, M = -(-N1 // 32), max(16, N2)
+    MT = M // 16
+    xn, w1n, w2n, twn = x.numpy(), w1.numpy(), w2.numpy(), tw.numpy()
+    out = np.zeros((L, 16, n), dtype=np.int64)
+    o0 = TG ^ (G & 4)
+    o2 = o0 ^ 4
+    KT = 8
+    S = N1 // KT  # the blocks of a column: one cluster
+    for l in range(L):
+        # each block of the cluster stages its own rows r = k0 .. k0 + KT - 1
+        # into its XA (one element a thread, digit bytes), then copies the
+        # other blocks' rows out of theirs (words of 8 or 16 bytes)
+        # the digit panels start as garbage: only the weight panels'
+        # padding is zeroed, and it must keep the digits' padding out
+        junk = np.random.default_rng(l)
+        xa8 = [junk.integers(0, 256, 4 * 32 * NQ1 * M * 8).astype(np.uint64) for _ in range(S)]
+        staged = []
+        for rank in range(S):
+            k0 = rank * KT
+            for it in range(KT * N2):
+                r, c = k0 + it % KT, it // KT
+                idx = r * N2 + c
+                staged.append(idx)
+                v = _val(xn[l, :, idx])
+                if pre is not None:
+                    v = _mont(v, _val(pre.numpy()[:, idx]))
+                at = 4 * (((r // 32) * M + c) * 8 + (((r % 32) // 4) ^ (c & 4))) + (r & 3)
+                for j in range(D):
+                    xa8[rank][at + 4 * j * NQ1 * M * 8] = (v >> (8 * j)) & 0xFF
+        assert sorted(staged) == list(range(n))  # every element once
+        own = [(b.reshape(-1, 4) << (8 * np.arange(4, dtype=np.uint64))).sum(axis=1) for b in xa8]
+        # each block writes its rows' words into the column's panel in device
+        # memory (garbage elsewhere), and copies the whole panel back
+        xs = junk.integers(0, 1 << 32, 32 * NQ1 * M * 8).astype(np.uint64)
+        for rank in range(S):
+            k0 = rank * KT
+            for it in range(D * N2):
+                c, j = it % N2, it // N2
+                off = ((j * NQ1 + k0 // 32) * M + c) * 8 + (((k0 % 32) // 4) ^ (c & 4))
+                xs[off : off + KT // 4] = own[rank][off : off + KT // 4]
+        for rank in range(S):
+            k0 = rank * KT
+            XA = xs.copy()
+            WB1 = np.zeros(32 * NQ1 * KT * 8, dtype=np.uint64)
+            WA2 = np.zeros(32 * M * 8, dtype=np.uint64)
+            BB8 = junk.integers(0, 256, 4 * 32 * KT * 8).astype(np.uint64)
+            KW1, KW2 = N1 // 4, N2 // 4
+            for it in range(32 * KT * KW1):
+                kw, m, i = it % KW1, (it // KW1) % KT, it // (KW1 * KT)
+                WB1[((i * NQ1 + kw // 8) * KT + m) * 8 + ((kw % 8) ^ (m & 4))] = _word(
+                    w1n[i, k0 + m, 4 * kw : 4 * kw + 4])
+            for it in range(32 * N2 * KW2):
+                kw, m, i = it % KW2, (it // KW2) % N2, it // (KW2 * N2)
+                WA2[(i * M + m) * 8 + (kw ^ (m & 4))] = _word(w2n[i, m, 4 * kw : 4 * kw + 4])
+            for stage in range(2):
+                A, NQ = (XA, NQ1) if stage == 0 else (WA2, 1)
+                if stage == 0:
+                    B = WB1
+                else:
+                    B = (BB8.reshape(-1, 4) << (8 * np.arange(4, dtype=np.uint64))).sum(axis=1)
+                a_chunk, b_chunk = M * 8, KT * 8
+                a_plane, b_plane = NQ * a_chunk, NQ * b_chunk
+                tiles = MT * (KT // 8)
+                for r0 in range(0, tiles, 2):
+                    in_round = min(2, tiles - r0)
+                    cs = np.zeros((64, 256), dtype=np.int64)
+                    for u in range(in_round):
+                        mt, nt = (r0 + u) % MT, (r0 + u) // MT
+                        pa, pb = (mt * 16 + G) * 8, (nt * 8 + G) * 8
+                        for warp in range(8):
+                            t0, t1 = T0[warp], T1[warp]
+                            acc = np.zeros((16, 32, 4), dtype=np.int64)
+                            for q in range(NQ):
+                                for i in range(max(0, t0 - 31), min(31, t1) + 1):
+                                    a = pa + i * a_plane + q * a_chunk
+                                    afr = np.stack([A[a + o0], A[a + 64 + o0], A[a + o2],
+                                                    A[a + 64 + o2]], 1)
+                                    for dt in range(t1 - t0 + 1):
+                                        j = t0 + dt - i
+                                        if 0 <= j < D:
+                                            b = pb + j * b_plane + q * b_chunk
+                                            acc[dt] += _mma(afr, np.stack([B[b + o0], B[b + o2]], 1))
+                            for dt in range(t1 - t0 + 1):
+                                row = cs[t0 + dt, u * 128 :]
+                                row[G * TN + 2 * TG] = acc[dt][:, 0]
+                                row[G * TN + 2 * TG + 1] = acc[dt][:, 1]
+                                row[(G + 8) * TN + 2 * TG] = acc[dt][:, 2]
+                                row[(G + 8) * TN + 2 * TG + 1] = acc[dt][:, 3]
+                    for e in range(in_round * 128):
+                        u, m, nn = e >> 7, (e >> 3) & 15, e & 7
+                        mt, nt = (r0 + u) % MT, (r0 + u) // MT
+                        row, kl = mt * 16 + m, nt * 8 + nn
+                        if row >= N2:
+                            continue  # a padding row (its sums may be garbage)
+                        assert int(cs[:, e].max()) < 1 << 31
+                        idx = k0 + kl + N1 * row
+                        v = _fold_model(cs[:, e])
+                        if stage == 0:
+                            v = _mont(v, _val(twn[:, k0 + kl, row]))
+                            at = 4 * (kl * 8 + ((row >> 2) ^ (kl & 4))) + (row & 3)
+                            for j in range(D):
+                                BB8[at + 4 * j * KT * 8] = (v >> (8 * j)) & 0xFF
+                        else:
+                            if post is not None:
+                                pv = post.numpy()[:, 0 if post.shape[1] == 1 else idx]
+                                v = _mont(v, _val(pv))
+                            out[l, :, idx] = [(v >> (16 * j)) & 0xFFFF for j in range(16)]
+    return torch.from_numpy(out).to(torch.int32)
+
+
+@pytest.mark.parametrize("log_n, form", [(6, "coset_forward"), (6, "inverse"), (7, "forward"),
+                                         (7, "coset_inverse")])
+def test_ntt_kernel_model_matches_plain(df, log_n, form):
+    """The model of dft_ntt's kernel against dft_ntt_plain at 2^6 (N1 = N2 =
+    8: M-side padding rows, one contraction chunk) and 2^7 (N1 = 16: a
+    cluster of two blocks), 2 columns with p - 1 among the values, in the form named
+    (pre row, 1/n scalar, post row)."""
+    mxu, fwd, inv = _ntt_consts(df, log_n)
+    x = torch.stack([df.pack(c) for c in ntt_inputs(log_n)])
+    x[0, :, 0] = torch.tensor([((P - 1) >> (16 * j)) & 0xFFFF for j in range(16)])
+    tw, w1, w2 = fwd if form.endswith("forward") else inv
+    pre = pows_host(df, 7, mxu.n, "cpu") if form == "coset_forward" else None
+    post = {"inverse": mxu.n_inv_mont, "coset_inverse": mxu.inverse_post(pow(7, P - 2, P))}.get(form)
+    want = cf.dft_ntt_plain(cf.FR, x, w1, w2, tw, pre, post)
+    assert torch.equal(ntt_kernel_model(x, w1, w2, tw, pre, post), want)
+    assert torch.equal(cf.dft_ntt(cf.FR, x, w1, w2, tw, pre, post), want)
 
 
 @pytest.mark.slow

@@ -2,7 +2,9 @@
 utils/chacha.py) on the CPU.
 
 `ParamsKZG.setup(8, device="cpu")` runs the plain version of the setup's
-kernel (g1_batch_mul) and must reproduce the committed
+kernel (g1_batch_mul, a fixed-base comb whose digits, table and sums are
+held to the host curve and to the old double-and-add) and must reproduce
+the committed
 params/kzg_bn254_8.srs byte for byte; a seeded test SRS is held to the host
 curve (g[i] = tau^i G, g_lagrange[i] = L_i(tau) G). The Processed format is
 held to the JAX package's bytes, the compressed point conventions to
@@ -20,10 +22,11 @@ from halo2_lib_tpu_torch.backend import kzg
 from halo2_lib_tpu_torch.backend.kzg import ParamsKZG, gen_srs
 from halo2_lib_tpu_torch.ops import cuda_field as cf
 from halo2_lib_tpu_torch.ops.ec_device import DeviceCurve
-from halo2_lib_tpu_torch.ops.limbs import DeviceField, ints_to_limbs_T, to_device
+from halo2_lib_tpu_torch.ops.limbs import DeviceField, ints_to_limbs_T, limbs_to_ints, to_device
 from halo2_lib_tpu_torch.utils.chacha import ChaCha20Rng, chacha20_block, reference_srs_tau
 from halo2_lib_tpu_torch.utils.curves import BN254_G1, BN254_G2
 from halo2_lib_tpu_torch.utils.fields import FQ_BN254, FR_BN254
+from halo2_lib_tpu_torch.utils.testing import comb_edge_scalars, old_g1_batch_mul
 
 # One core per test process: the suite runs in parallel workers.
 torch.set_num_threads(1)
@@ -108,6 +111,85 @@ def test_g1_batch_mul_plain_against_the_host_curve():
     got = list(zip(dc.df.unpack(ax), dc.df.unpack(ay)))
     want = [BN254_G1.mul(BN254_G1.g, s) or (0, 0) for s in scalars]
     assert got == want
+
+
+# --- the comb of g1_batch_mul: its digits, table and sums ---------------------------
+
+EDGE = comb_edge_scalars()
+
+
+def _ints(t) -> list:
+    return limbs_to_ints(t.T.numpy())
+
+
+def _signed_digits(scalars: list) -> list:
+    """Per scalar, the comb's signed digits (cf.comb_digits), low first."""
+    d = cf.comb_digits(torch.from_numpy(ints_to_limbs_T(scalars).astype("int64")))
+    return [[int(m[i]) * (-1 if bool(ng[i]) else 1) for m, ng in d] for i in range(len(scalars))]
+
+
+@pytest.mark.parametrize("name", list(EDGE))
+def test_comb_digits_of_each_edge_scalar(name):
+    """The signed digits sum back to the scalar, lie in (-64, 64], and show
+    the case the scalar is named for."""
+    s = EDGE[name]
+    (d,) = _signed_digits([s])
+    assert len(d) == cf.COMB_WINDOWS == 37
+    assert sum(v << (cf.COMB_W * j) for j, v in enumerate(d)) == s
+    assert all(-cf.COMB_HALF < v <= cf.COMB_HALF for v in d)
+    top = cf.COMB_W * (cf.COMB_WINDOWS - 1)
+    mid = cf.COMB_WINDOWS // 2
+    r = FR_BN254.p
+    want = {
+        "zero": lambda: not any(d),
+        "one": lambda: d == [1] + [0] * 36,
+        "two": lambda: d == [2] + [0] * 36,
+        "r - 1": lambda: s == r - 1,
+        "carry into the top window": lambda: d[-2:] == [-1, 3] and s >> top == 2,
+        "carry through every window": lambda: d == [-1] + [0] * 35 + [2],
+        "every digit +64": lambda: d[:-1] == [64] * 36,
+        "every digit -63": lambda: d[:-1] == [-63] * 36,
+        "a digit 0 in the middle": lambda: d[mid] == 0 and d[mid - 1] and d[mid + 1],
+        "a digit 0 from a carry": lambda: d[mid] == 0 and (s >> (cf.COMB_W * mid)) & 127 == 127,
+        # the lower windows' sum is the top entry: the mixed add's doubling
+        "the top entry doubled": lambda: (sum(v << (cf.COMB_W * j) for j, v in enumerate(d[:-1]))
+                                          - d[-1] * (1 << top)) % r == 0 and d[-1] == 3,
+    }[name]
+    assert want()
+
+
+def test_comb_table_entries_are_the_multiples_of_g():
+    """Entry j * 64 + d - 1 of G's table is d 2^(7j) G (Montgomery affine
+    words), at sampled (j, d) over every window's first and last."""
+    dc = DeviceCurve(DeviceField(BN254_G1.base), BN254_G1)
+    tab = cf.g1_comb_table(*dc.pack_points_affine([BN254_G1.g]))
+    assert tuple(tab.shape) == (cf.COMB_WINDOWS * cf.COMB_HALF, 16)
+    tx, ty = cf.unpack_point_words(tab)
+    q = FQ_BN254.p
+    rinv = pow(1 << 256, -1, q)
+    for j, d in [(0, 1), (0, 64), (1, 1), (17, 33), (35, 64), (36, 1), (36, 64)]:
+        e = j * cf.COMB_HALF + d - 1
+        got = tuple(v * rinv % q for v in (_ints(tx[:, e : e + 1])[0], _ints(ty[:, e : e + 1])[0]))
+        assert got == BN254_G1.mul(BN254_G1.g, d << (cf.COMB_W * j))
+
+
+def test_comb_against_the_host_curve_and_the_old_double_and_add():
+    """Every edge scalar and 5 random ones through the wrapper on CPU
+    tensors (the comb's plain version): made affine, equal to BN254_G1.mul
+    and to the old per-lane double-and-add; the Jacobian triples differ."""
+    r = FR_BN254.p
+    rng = random.Random(11)
+    scalars = list(EDGE.values()) + [rng.randrange(r) for _ in range(5)]
+    dc = DeviceCurve(DeviceField(BN254_G1.base), BN254_G1)
+    Gx, Gy = dc.pack_points_affine([BN254_G1.g])
+    sc = to_device(ints_to_limbs_T(scalars), "cpu")
+    comb = cf.g1_batch_mul(sc, Gx, Gy)
+    old = old_g1_batch_mul(sc, Gx, Gy)
+    aff = [kzg._affine_mont(dc.df, *P) for P in (comb, old)]
+    assert all(torch.equal(a, b) for a, b in zip(*aff))
+    got = list(zip(dc.df.unpack(aff[0][0]), dc.df.unpack(aff[0][1])))
+    assert got == [BN254_G1.mul(BN254_G1.g, s) or (0, 0) for s in scalars]
+    assert not torch.equal(comb[2], old[2])
 
 
 # --- formats --------------------------------------------------------------------------
