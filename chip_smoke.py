@@ -1,11 +1,12 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port (halo2_lib_tpu_torch) once on one NVIDIA card.
 
-    python3 chip_smoke.py [--ptxas] [--mesh-only]
+    python3 chip_smoke.py [--ptxas] [--mesh-only] [--msm-only]
 
-(--ptxas prints ptxas's report of every kernel; --mesh-only
-builds the kernels and runs phase 10 alone, over every visible card: the
-multi-card check.) Phases, each printing its own lines; any failure raises
+(--ptxas prints ptxas's report of every kernel; --mesh-only builds the
+kernels and runs phase 10 alone, over every visible card: the multi-card
+check; --msm-only builds them and runs phase 12 alone.) Phases, each
+printing its own lines; any failure raises
 and exits non-zero:
 
 1. build   - compile the CUDA kernels from halo2_lib_tpu_torch/csrc (nvcc).
@@ -28,8 +29,8 @@ and exits non-zero:
              post row (shift^-i / n), and both with random twiddles, with 0,
              1, p - 1 and R mod p among the values, also against the per-stage
              composition it replaced (ntt_butterfly launches, the torch
-             interleave and the mont_mul scalings; kept here, not in the
-             package); commit_dbl_add
+             interleave and the mont_mul scalings: ops/ntt.py ntt_stages,
+             the radix-2 route above 2^11 points); commit_dbl_add
              at (C, m) = (1, 1), (3, 13), (8, 512) and (3, 1024) with
              scalars 0, 1 and r - 1, an all-zero column and a (0, 0) base,
              also against the per-bit composition it replaced (ec_double,
@@ -163,6 +164,30 @@ and exits non-zero:
              3, 3b and 9 (dft_ntt also in 10); the golden k=9 keygen and proof again
              with HALO2_NO_MXU_NTT=1 (new domains, every NTT through
              ntt_small) equal to golden_k9.npz.
+12. msm    - (after 11, before 5) the reference's MSM benchmark circuit
+             (configs/bn254/msm_circuit.t.config: k=13, batch 8, the serial
+             MSM; msm_circuit.config: k=17, batch 100, window 4,
+             multi_exp_par over many contexts), built as
+             tests/test_configs.py:run_msm_config builds it: setup(k) on the
+             card equal to the JAX host SRS, the MOCK builder's config
+             params, break points, columns and copies equal to the JAX
+             builder's (msm_digests.json), keygen, the pinned PROVER
+             builder's witness, create_proof at seed 0, verify_proof and a
+             tampered proof rejected; the vk and proof digests held where
+             the JAX run froze them (both at k=13; at k=17 what
+             make_goldens.py --msm reached). Stage seconds, peak device
+             memory, copies, contexts and launches printed (the kernel rows'
+             `launches_msm_k13`, `launches_msm_k17`; counts reset just
+             before each). Then a k=12 proof (the ECDSA circuit at k=12)
+             with each switch: HALO2_NO_FOURSTEP_NTT=1 (MxuNTT on dft_stage
+             for 2^12 and 2^14), with HALO2_NO_MXU_NTT=1 too (the radix-2
+             stage loop of ntt_butterfly launches), HALO2_PROVER_SELFCHECK=1
+             and =2, HALO2_PROVER_DEBUG=1 (keygen too): each proof's bytes
+             equal the proof's without it; and the golden k=9 proof with the
+             commit bound HALO2_COMMIT_SIMPLE_MAX=0 sets (Pippenger, not
+             commit_dbl_add) equal to golden_k9.npz (the kernel rows'
+             `launches_switches`: all these proofs). `--msm-only` builds the
+             kernels, checks them (phase 2) and runs this phase alone.
 5. timing  - every kernel again, at the largest shapes the main path gave it
              (the ECDSA, k=15 and k=9 paths' shapes; g1_batch_mul at phase
              6's [16, 2^20] with setup(19)'s scalars, its plain version run
@@ -179,7 +204,11 @@ and exits non-zero:
              GEMM shape, the product without the fold);
              the fused kernels' and fermat_inv's serial chains on [timing]
              lines, commit_dbl_add also at m = 1024, and ntt_small beside
-             the per-stage composition it replaced, at the same shape.
+             the per-stage composition it replaced, at the same shape; then
+             every kernel whose largest launch in the k=17 MSM run does more
+             work than that shape again at the MSM run's shape (the rows'
+             `at_msm_k17`: bucket_sums_fused at its windows x 2^17 points,
+             colntt at 2^19, ...).
 5b. MSM    - one whole MSM at the ECDSA advice commit's shape (21 columns x
              2^15 points, window 10, distinct bases), in turns old, new, new,
              old: "old" accumulates the buckets by the bucket_scan composition
@@ -201,7 +230,9 @@ script exits non-zero and prints no result.
 
 from __future__ import annotations
 
+import contextlib
 import hashlib
+import io
 import json
 import os
 import random
@@ -289,6 +320,15 @@ COMPARE_SHAPES = {"ntt_small": ((12, 16, 2048), True, 0),
 # and on (f, g), 4 a limb, over 9 limbs, each a 32 x 32 -> 64-bit product
 # (a low and a high half); and 30 divsteps of about 10 operations.
 INV_BATCH_OPS = 2 * 9 * (6 + 4) + 10 * 30
+
+
+def nvidia_smi() -> str:
+    """The card's name and power limit, as nvidia-smi gives them."""
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60,
+    ).stdout.strip().splitlines()
+    return smi[0] if smi else "nvidia-smi: no output"
 
 
 def log(msg: str) -> None:
@@ -394,38 +434,6 @@ def old_commit_double_and_add(cf, dc, scalars, Ax, Ay):
         acc = dc.select(bit, cf.ec_madd(acc, Am, False), acc)
     X, Y, Z = dc.tree_reduce(acc)  # [C, 16, 1]
     return tuple(t[..., 0].transpose(0, 1) for t in (X, Y, Z))
-
-
-def old_stage_tables(torch, tw):
-    """The per-stage twiddle rows ops/ntt.py built once per table before the
-    fusion: stage (n, s) uses w^(p s) at lane p s + j of the halves."""
-    N = 2 * tw.shape[1]
-    out, n, s = [], N, 1
-    while n > 1:
-        m = n // 2
-        out.append(tw[:, ::s][:, :m, None].expand(16, m, s).reshape(16, N // 2).contiguous())
-        n, s = m, 2 * s
-    return out
-
-
-def old_ntt_small(cf, torch, fid, x, stage_tw, pre=None, post=None):
-    """ops/ntt.py's NTT and CosetNTT before the fusion, on x [C, 16, n]: the
-    pre product (one mont_mul launch), then per stage one ntt_butterfly
-    launch over the two halves (which its wrapper copies contiguous) and the
-    interleave (a torch stack and reshape), then the post product (one
-    mont_mul launch; the inverse coset took two, 1/n and then the shift
-    powers, with the same result)."""
-    C, _, N = x.shape
-    if pre is not None:
-        x = cf.mont_mul(fid, x, pre)
-    n, s = N, 1
-    for wp in stage_tw:
-        m = n // 2
-        top, bot = cf.ntt_butterfly(fid, x[..., : N // 2], x[..., N // 2 :], wp)
-        x = torch.stack([top.reshape(C, 16, m, s), bot.reshape(C, 16, m, s)], dim=-2)
-        x = x.reshape(C, 16, N)
-        n, s = m, 2 * s
-    return x if post is None else cf.mont_mul(fid, x, post)
 
 
 def ntt_chain(spec) -> tuple[int, int]:
@@ -929,10 +937,12 @@ def main() -> None:
         DeviceCurve, _scan_lanes, msm_many_device, msm_window_bits, weight_lanes,
     )
     from halo2_lib_tpu_torch.ops.limbs import DeviceField, ints_to_limbs_T, limbs_to_ints
-    from halo2_lib_tpu_torch.ops.ntt import NTT, CosetNTT, FourStepNTT, new_ntt
+    from halo2_lib_tpu_torch.ops.ntt import NTT, CosetNTT, FourStepNTT, new_ntt, ntt_stages
     from halo2_lib_tpu_torch.ops.ntt_mxu import MxuNTT, dft_planes_np
     from halo2_lib_tpu_torch.utils.chacha import reference_srs_tau
+    from halo2_lib_tpu_torch.backend import kzg as kzg_mod
     from halo2_lib_tpu_torch.backend.kzg import COMMIT_SIMPLE_MAX
+    from halo2_lib_tpu_torch.ecc import ec as port_ec
     from halo2_lib_tpu_torch.utils.curves import BN254_G1
     from halo2_lib_tpu_torch.utils.fields import FQ_BN254, FR_BN254
     from halo2_lib_tpu_torch.backend.mock import MockProver
@@ -944,7 +954,8 @@ def main() -> None:
         POSEIDON_K, POSEIDON_LOOKUP_BITS, base_test, check_proof, ecdsa_circuit, ecdsa_inputs,
         ecdsa_witness, golden_circuit, golden_witness, pairing_circuit, pairing_inputs,
         pairing_witness, poseidon_inputs, poseidon_logic, ram_circuit, rlc_circuit, rlc_prover,
-        slice_circuit, comb_edge_scalars, old_g1_batch_mul,
+        slice_circuit, comb_edge_scalars, old_g1_batch_mul, MSM_CONFIG, MSM_T_CONFIG, load_config,
+        msm_circuit, msm_witness, circuit_digests,
     )
 
     dev = torch.device("cuda")
@@ -1216,7 +1227,7 @@ def main() -> None:
             for label, (tw, pre, post) in variants.items():
                 got = cf.ntt_small(cf.FR, x, tw, pre, post)
                 want = cf.ntt_small_plain(cf.FR, x, tw, pre, post)
-                old = old_ntt_small(cf, torch, cf.FR, x, old_stage_tables(torch, tw), pre, post)
+                old = ntt_stages(cf.FR, x, tw, pre, post)
                 if not (torch.equal(got, want) and torch.equal(got, old)):
                     raise AssertionError(f"ntt_small at n = {n}, C = {C} ({label}) disagrees with "
                                          f"its plain version or the per-stage composition")
@@ -1350,6 +1361,204 @@ def main() -> None:
                                  f"{len(mcalls)} MxuNTT calls, dft_stage "
                                  f"{launches['dft_stage']}, ntt_butterfly "
                                  f"{launches['ntt_butterfly']} (want one, one, 0 and 0)")
+
+    # the literal ports of the butterfly, the single point ops and the bucket
+    # scan: on no path but phase 12's switch runs (ntt_butterfly)
+    off_path = ("ntt_butterfly", "ec_add", "ec_double", "ec_madd", "bucket_scan")
+
+    # --- 12. msm: the reference's MSM benchmark circuit ------------------------------------
+    def msm_phase():
+        """The MSM circuit of configs/bn254/msm_circuit.t.config (k=13, the
+        serial MSM) and msm_circuit.config (k=17, batch 100, multi_exp_par)
+        through keygen, the pinned PROVER builder and create_proof, held to
+        msm_digests.json; then the prover's switches on a k=12 proof.
+        Returns the launches of the two MSM runs and of the switch runs, and
+        the k=17 run's largest shapes."""
+        t12 = time.time()
+        with open(os.path.join(HERE, "tests", "data", "torch_goldens", "msm_digests.json")) as f:
+            mref = json.load(f)
+        seed = mref["rng_seed"]
+        launches, largest = {}, {}
+        for key, rel in (("t_config", MSM_T_CONFIG), ("full", MSM_CONFIG)):
+            # what make_goldens.py --msm froze of this config (stage by stage)
+            cfg, want = load_config(rel), mref.get(key, {})
+            k = cfg["degree"]
+            tag = f"[msm k={k}]"
+            t = time.time()
+            params_m = ParamsKZG.setup(k, device=dev)
+            t_srs = time.time() - t
+            srs_sha = hashlib.sha256(params_m.to_halo2_bytes()).hexdigest()
+            if srs_sha != want.get("srs_sha256", srs_sha):
+                raise AssertionError(f"{tag} setup({k}) differs from the JAX host SRS")
+            torch.cuda.reset_peak_memory_stats()
+            reset_counts()
+            st = {}
+            t = time.time()
+            port_ec.DEFAULT_RNG.seed(seed)
+            builder = msm_circuit(cfg)
+            st["witness (MOCK builder)"] = time.time() - t
+            t = time.time()
+            circuit = builder.synthesize()
+            st["synthesize"] = time.time() - t
+            t = time.time()
+            got = {"config_params": builder.config_params.to_json(),
+                   "break_points": builder.break_points(), "digests": circuit_digests(circuit)}
+            st["digests (host)"] = time.time() - t
+            bad = [part for part in got if part in want and got[part] != want[part]]
+            if bad:
+                raise AssertionError(f"{tag} the MOCK builder's {bad} differ from the JAX builder's")
+            ncopies = len(circuit.copies)
+            kst = {}
+            t = time.time()
+            pk_m = keygen(params_m, builder, circuit, device=dev, timings=kst)
+            st["keygen"] = time.time() - t
+            peak_keygen = torch.cuda.max_memory_allocated() / 2**30
+            torch.cuda.reset_peak_memory_stats()
+            del circuit
+            vk_sha = hashlib.sha256(pk_m.vk.to_bytes()).hexdigest()
+            if "vk_sha256" in want and vk_sha != want["vk_sha256"]:
+                raise AssertionError(f"{tag} vk differs from the JAX package's")
+            t = time.time()
+            pb = pinning_of(builder).prover_builder()
+            msm_witness(pb, cfg, None, random.Random(seed))
+            st["witness (pinned PROVER builder)"] = time.time() - t
+            pst = {}
+            t = time.time()
+            proof_m = create_proof(params_m, pk_m, pb, seed=0, device=dev, timings=pst)
+            st["create_proof"] = time.time() - t
+            launches[key], largest[key] = dict(cf.LAUNCHES), dict(cf.LARGEST)
+            calls = list(ntt_calls)
+            peak = torch.cuda.max_memory_allocated() / 2**30
+            t = time.time()
+            ok = verify_proof(params_m, pk_m.vk, proof_m)
+            st["verify_proof"] = time.time() - t
+            if not ok:
+                raise AssertionError(f"{tag} proof does not verify")
+            if not tampered_rejected(params_m, pk_m.vk, proof_m):
+                raise AssertionError(f"{tag} tampered proof verifies")
+            proof_sha = hashlib.sha256(proof_m).hexdigest()
+            if "proof_sha256" in want and proof_sha != want["proof_sha256"]:
+                raise AssertionError(f"{tag} proof differs from the JAX proof's digest")
+            cp = builder.config_params
+            held = [d for d in ("config_params", "break_points", "digests", "srs_sha256",
+                                "vk_sha256", "proof_sha256") if d in want]
+            log(f"{tag} {rel}: batch {cfg['batch_size']}, window {cfg['window_bits']}, "
+                f"{cfg['limb_bits']}-bit limbs x {cfg['num_limbs']}, lookup_bits "
+                f"{cfg['lookup_bits']}; columns: advice {cp.num_advice_per_phase}, lookup "
+                f"{cp.num_lookup_advice_per_phase}, fixed {cp.num_fixed} (the reference's config "
+                f"file: {cfg['num_advice']} + {cfg['num_lookup_advice']}, fixed "
+                f"{cfg['num_fixed']}); {ncopies} copies; {len(pb.pool(0).threads)} contexts")
+            log(f"{tag} == the JAX package's (msm_digests.json): {held}; the port's srs sha256 "
+                f"{srs_sha}, vk sha256 {vk_sha}, proof {len(proof_m)} bytes, sha256 {proof_sha}; "
+                f"verifies, tampered proof rejected")
+            log(f"{tag} setup({k}) {t_srs:.3f}s; stages (s) " + stage_line(st))
+            log(f"{tag} keygen stages (s): " + stage_line(kst))
+            log(f"{tag} create_proof stages (s): " + stage_line(pst))
+            log(f"{tag} peak device memory: keygen {peak_keygen:.2f} GiB, create_proof "
+                f"{peak:.2f} GiB")
+            log(f"{tag} launches: " + json.dumps(launches[key]))
+            # every domain is 2^13 or more: the four-step NTT; every commit
+            # column has 2^13 points or more: Pippenger
+            ntt_rule(tag, launches[key], calls)
+            never = ("ntt_small", "dft_stage", "dft_ntt", "commit_dbl_add", "g1_batch_mul",
+                     *off_path)
+            missing_m = [n for n in cf.KERNELS if n not in never and launches[key][n] == 0]
+            if missing_m or any(launches[key][n] for n in never):
+                raise AssertionError(f"{tag} launches {launches[key]}: not launched {missing_m}, "
+                                     f"want 0 of {never}")
+            del builder, pb, pk_m, params_m, proof_m
+            torch.cuda.empty_cache()
+
+        # the switches on a k=12 proof (the ECDSA circuit at k=12, about 120
+        # advice columns): each proof equals the one without them
+        params12 = ParamsKZG.read(os.path.join(HERE, "params", "kzg_bn254_12.srs"), device=dev)
+        builder12 = ecdsa_circuit(12, 11, rng=random.Random(0x5EC0))
+        b12 = builder12.synthesize()
+        pk12 = keygen(params12, builder12, b12, device=dev)
+        base12 = create_proof(params12, pk12, b12, seed=0, device=dev)
+        if not verify_proof(params12, pk12.vk, base12):
+            raise AssertionError("[switch] the k=12 proof does not verify")
+        switched = {k: 0 for k in cf.KERNELS}
+        runs = (
+            ("HALO2_NO_FOURSTEP_NTT=1", {"HALO2_NO_FOURSTEP_NTT": "1"}),
+            ("HALO2_NO_FOURSTEP_NTT=1 HALO2_NO_MXU_NTT=1",
+             {"HALO2_NO_FOURSTEP_NTT": "1", "HALO2_NO_MXU_NTT": "1"}),
+            ("HALO2_PROVER_SELFCHECK=1", {"HALO2_PROVER_SELFCHECK": "1"}),
+            ("HALO2_PROVER_SELFCHECK=2", {"HALO2_PROVER_SELFCHECK": "2"}),
+            ("HALO2_PROVER_DEBUG=1", {"HALO2_PROVER_DEBUG": "1"}),
+        )
+        for label, env in runs:
+            os.environ.update(env)
+            _domain.cache_clear()
+            pk12._runtime = None
+            err_buf = io.StringIO()
+            try:
+                reset_counts()
+                t = time.time()
+                with contextlib.redirect_stderr(err_buf):
+                    # under the debug switch keygen too prints its stages
+                    pk_s = keygen(params12, builder12, b12, device=dev) if "DEBUG" in label else pk12
+                    proof_s = create_proof(params12, pk_s, b12, seed=0, device=dev)
+                torch.cuda.synchronize()
+                t_s = time.time() - t
+                got_l = dict(cf.LAUNCHES)
+            finally:
+                for var in env:
+                    os.environ.pop(var)
+                _domain.cache_clear()
+                pk12._runtime = None
+            err = err_buf.getvalue()
+            for n in cf.KERNELS:
+                switched[n] += got_l[n]
+            want_l = {  # kernel -> launched (True) or not (False) under the switch
+                "HALO2_NO_FOURSTEP_NTT=1": {"colntt": False, "dft_stage": True},
+                "HALO2_NO_FOURSTEP_NTT=1 HALO2_NO_MXU_NTT=1": {
+                    "colntt": False, "dft_stage": False, "ntt_butterfly": True},
+            }.get(label, {"colntt": True, "bucket_sums_fused": True})
+            wrong = {n: got_l[n] for n, on in want_l.items() if bool(got_l[n]) != on}
+            want_err = {
+                "HALO2_PROVER_SELFCHECK=1": ["[prover selfcheck] all argument families hold on H\n"],
+                "HALO2_PROVER_SELFCHECK=2": [" columns checked\n"],
+                "HALO2_PROVER_DEBUG=1": ["[keygen] permutation cycles: ", "[prover] shplonk: "],
+            }.get(label, [])
+            if (proof_s != base12 or pk_s.vk.to_bytes() != pk12.vk.to_bytes() or wrong
+                    or any(w not in err for w in want_err)):
+                raise AssertionError(f"[switch] {label}: bytes equal {proof_s == base12}, "
+                                     f"launches off {wrong}, stderr {err[-300:]!r}")
+            log(f"[switch] k=12 proof with {label} == the proof without it; {t_s:.3f}s; "
+                + ", ".join(f"{n} {got_l[n]}" for n in want_l)
+                + (f"; stderr: {err.strip().splitlines()[-1]}" if err else ""))
+        # HALO2_COMMIT_SIMPLE_MAX is read when backend/kzg.py is imported:
+        # the bound it sets there, 0, sends the golden k=9 proof's commits
+        # (2^9 points, double-and-add by default) to Pippenger; the JAX bytes
+        gold12 = np.load(os.path.join(HERE, "tests", "data", "torch_goldens", "golden_k9.npz"))
+        params9s = ParamsKZG.read(os.path.join(HERE, "params", "kzg_bn254_9.srs"), device=dev)
+        pk9s = keygen(params9s, golden_circuit(), device=dev)
+        old_max, kzg_mod.COMMIT_SIMPLE_MAX = kzg_mod.COMMIT_SIMPLE_MAX, 0
+        try:
+            reset_counts()
+            proof9s = create_proof(params9s, pk9s, golden_circuit(), seed=0, device=dev)
+            got_l = dict(cf.LAUNCHES)
+        finally:
+            kzg_mod.COMMIT_SIMPLE_MAX = old_max
+        for n in cf.KERNELS:
+            switched[n] += got_l[n]
+        if (proof9s != bytes(gold12["proof"]) or got_l["commit_dbl_add"]
+                or not got_l["bucket_sums_fused"]):
+            raise AssertionError(f"[switch] k=9 with COMMIT_SIMPLE_MAX 0: bytes equal "
+                                 f"{proof9s == bytes(gold12['proof'])}, launches {got_l}")
+        log(f"[switch] golden k=9 proof with COMMIT_SIMPLE_MAX 0 (HALO2_COMMIT_SIMPLE_MAX=0's "
+            f"bound) == golden_k9.npz; commit_dbl_add 0, bucket_sums_fused "
+            f"{got_l['bucket_sums_fused']}")
+        del params12, builder12, b12, pk12
+        log(f"[msm] phase 12 {time.time() - t12:.2f}s")
+        return launches["t_config"], launches["full"], switched, largest["full"]
+
+    if "--msm-only" in sys.argv:
+        msm_phase()
+        log(f"[total] chip_smoke.py --msm-only {time.time() - t_start:.1f}s")
+        log(nvidia_smi())
+        return
 
     # --- 3. k=9 parity with the JAX goldens ---------------------------------------------
     t = time.time()
@@ -1573,7 +1782,6 @@ def main() -> None:
     # bucket_weight and msm_combine, one launch each per MSM call); the
     # literal ports of the butterfly, the single point ops and the bucket
     # scan run nowhere; every other kernel runs at both sizes
-    off_path = ("ntt_butterfly", "ec_add", "ec_double", "ec_madd", "bucket_scan")
     pippenger = ("bucket_sums_fused", "bucket_weight", "msm_combine")
     missing = [k for k in cf.KERNELS
                if k not in ("colntt", "g1_batch_mul", "ntt_small", "dft_stage", *off_path,
@@ -2132,6 +2340,9 @@ def main() -> None:
     log(json.dumps({"mxu_runs": mxu_runs}))
     log(f"[mxu] phase 11 {time.time() - t11:.2f}s")
 
+    # --- 12. msm: the MSM circuit at k=13 and k=17, the switches at k=12 --------------------
+    launches_msm13, launches_msm17, launches_sw, largest_msm = msm_phase()
+
     # --- 5. every kernel at its main-path shapes: check and time ----------------------------
     def numel(shape) -> int:
         out = 1
@@ -2296,27 +2507,31 @@ def main() -> None:
 
     rows = []
     work = {}  # data-dependent work of this run's inputs, for the bounds
+
+    def path_inputs(name, spec):
+        """Inputs at a main-path shape where make_inputs' random ones would
+        not do: colntt's stage twiddles start at the Montgomery one, as the
+        NTT's do; bucket_sums_fused takes the digits random scalars give (no
+        special windows), and this run's live slots are counted."""
+        if name == "bucket_sums_fused":
+            args = bucket_case(gen, torch, cf, spec, P[cf.FQ], special=False)[0]
+            work["live_slots"] = int((args[2] > 0).sum())
+            return cf.FQ, args
+        fid, args = make_inputs(name, spec)
+        if name == "colntt":
+            args[1][:, 0] = mont_one
+        return fid, args
     for name in cf.KERNELS:
         # the kernels off the main path are timed at the shapes it gave them
         # before their fusion
         spec = (COMPARE_SHAPES.get(name) or (largest_e.get(name) or largest15.get(name)
                 or largest9.get(name) or largest_p.get(name) or largest_mesh.get(name)
                 or OFF_PATH_SHAPES[name])[1])
-        if name == "colntt":
-            # the NTT's stage twiddles start at the Montgomery one
-            fid, args = make_inputs(name, spec)
-            args[1][:, 0] = mont_one
+        if name in ("colntt", "bucket_sums_fused"):
+            fid, args = path_inputs(name, spec)
             err = max_err(run(name, fid, args, False), run(name, fid, args, True))
             if err:
-                raise AssertionError(f"colntt at {spec} disagrees with its plain version")
-        elif name == "bucket_sums_fused":
-            # the main path's widest MSM call with digits as random scalars
-            # give them (no special windows), held to the plain version
-            fid, args = cf.FQ, bucket_case(gen, torch, cf, spec, P[cf.FQ], special=False)[0]
-            err = max_err(cf.bucket_sums_fused(*args), cf.bucket_sums_fused_plain(*args))
-            if err:
-                raise AssertionError(f"bucket_sums_fused at {spec} disagrees with its plain version")
-            work["live_slots"] = int((args[2] > 0).sum())
+                raise AssertionError(f"{name} at {spec} disagrees with its plain version")
         elif name == "g1_batch_mul":
             # the plain version at 2^20 lanes runs once, timed as it is checked
             fid, args = make_inputs(name, spec)
@@ -2372,11 +2587,13 @@ def main() -> None:
             "replaces": rep,
             # the main path's launches: the k=9, the two phase-3b k=9
             # circuits', the k=15 slice, the ECDSA, the pairing, the
-            # pipelined ECDSA (phase 7), the device mock, the gadget runs
-            # and the mesh proofs (phase 10)
+            # pipelined ECDSA (phase 7), the device mock, the gadget runs,
+            # the mesh proofs (phase 10), the MSM circuit at k=13 and k=17
+            # and the k=12 switch proofs (phase 12)
             "launches": (launches9[name] + launches_3b[name] + launches15[name] + launches_e[name]
                          + launches_p[name] + launches_b[name] + launches_m[name]
-                         + launches_g[name] + launches_mesh[name]),
+                         + launches_g[name] + launches_mesh[name] + launches_msm13[name]
+                         + launches_msm17[name] + launches_sw[name]),
             "launches_k9": launches9[name],
             "launches_k9_phases": launches_3b[name],
             "launches_k15": launches15[name],
@@ -2386,6 +2603,9 @@ def main() -> None:
             "launches_mock": launches_m[name],
             "launches_gadgets": launches_g[name],
             "launches_mesh": launches_mesh[name],
+            "launches_msm_k13": launches_msm13[name],
+            "launches_msm_k17": launches_msm17[name],
+            "launches_switches": launches_sw[name],
             "max_abs_err": err,
             "ms": round(ms, 6),
             "plain_ms": round(plain_ms, 6),
@@ -2461,16 +2681,16 @@ def main() -> None:
         if name == "ntt_small":
             # the per-stage composition it replaced, at the same shape
             x, tw, pre, post = args
-            stage_tw = old_stage_tables(torch, tw)
-            if not torch.equal(old_ntt_small(cf, torch, fid, x, stage_tw, pre, post),
+            if not torch.equal(ntt_stages(fid, x, tw, pre, post),
                                cf.ntt_small(fid, *args)):
                 raise AssertionError(f"ntt_small at {spec} differs from the per-stage composition")
-            old_ms = time_ms(lambda: old_ntt_small(cf, torch, fid, x, stage_tw, pre, post), reps)
+            old_ms = time_ms(lambda: ntt_stages(fid, x, tw, pre, post), reps)
             row["composition_ms"] = round(old_ms, 6)
             runs = ntt_chain(spec)[0]
             log(f"[timing] ntt_small at {spec}: {ms:.4f} ms against {old_ms:.4f} ms for the "
-                f"per-stage composition it replaced ({len(stage_tw)} ntt_butterfly launches and "
-                f"interleaves, {int(pre is not None) + int(post is not None)} mont_mul), equal "
+                f"per-stage composition it replaced ({x.shape[-1].bit_length() - 1} ntt_butterfly "
+                f"launches and interleaves, {int(pre is not None) + int(post is not None)} "
+                f"mont_mul), equal "
                 f"outputs; a thread runs {runs} Montgomery products")
         if name == "commit_dbl_add":
             # the same columns at m = 1024, the longest the path sends it
@@ -2486,6 +2706,52 @@ def main() -> None:
             log(f"[timing] commit_dbl_add at {spec_big}: {ms_big:.4f} ms (bound {bms_big:.4f} ms "
                 f"by {by_big}; a chain of {work['commit'][1]} dependent Montgomery products), "
                 f"kernel == plain")
+
+    # every kernel whose largest launch in the k=17 MSM run (phase 12) does
+    # more work than the shape timed above: checked, timed (kernel 3 or 10
+    # launches, plain version once) and bounded at that shape too
+    for row in rows:
+        name = row["name"]
+        if name in COMPARE_SHAPES or name not in largest_msm:
+            continue
+        base = (largest_e.get(name) or largest15.get(name) or largest9.get(name)
+                or largest_p.get(name) or largest_mesh.get(name) or OFF_PATH_SHAPES[name])
+        work_m, spec = largest_msm[name]
+        if work_m <= base[0]:
+            continue
+        if name in ("mont_mul", "field_add", "field_sub") and numel(spec[0]) > 1 << 29:
+            # the quotient's whole stacks: the plain version's int64
+            # temporaries at that size would pass the card's memory
+            log(f"[timing] {name}: the k=17 MSM run's largest launch {spec} (more than 2 GiB "
+                f"an operand) not timed; a bytes-bound kernel, its time scales from the row's")
+            continue
+        fid, args = path_inputs(name, spec)
+        got = run(name, fid, args, False)
+        torch.cuda.synchronize()
+        e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        e0.record()
+        want = run(name, fid, args, True)
+        e1.record()
+        torch.cuda.synchronize()
+        err = max_err(got, want)
+        if err:
+            raise AssertionError(f"{name} at the k=17 MSM run's shape {spec} disagrees with its "
+                                 f"plain version")
+        del got, want
+        if name == "fermat_inv":
+            steps = [divsteps_needed(x, P[fid]) for x in host_ints(args[0])]
+            work["inv_batches"] = sum(max(1, -(-d // 30)) for d in steps)
+        reps = 3 if name in ("bucket_scan", "bucket_sums_fused") else 10
+        ms = time_ms(lambda: run(name, fid, args, plain=False), reps)
+        bms, by = bound(name, spec)
+        row["at_msm_k17"] = {
+            "shape": [list(x) if isinstance(x, tuple) else x for x in spec],
+            "ms": round(ms, 6), "plain_ms": round(e0.elapsed_time(e1), 6),
+            "bound_ms": round(bms, 6), "bound_by": by, "max_abs_err": err,
+        }
+        log(f"[timing] {name} at the k=17 MSM run's largest shape {spec}: {ms:.4f} ms (plain "
+            f"{row['at_msm_k17']['plain_ms']:.3f} ms, bound {bms:.4f} ms by {by}), kernel == plain")
+        del args
 
     # --- 5b. one whole MSM at the ECDSA advice commit's shape: old vs fused buckets ---------
     def old_tail(dc, S, W: int, c: int, CL2: int):
@@ -2628,12 +2894,8 @@ def main() -> None:
     log(json.dumps({"msm_turns": msm5, "tail_ms": {k: round(v, 3) for k, v in tail_ms.items()},
                     "ec_add_16x139776_ms": round(ms_add_big, 6), "mul_chain": mul_turns}))
 
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60,
-    ).stdout.strip().splitlines()
     log(f"[total] chip_smoke.py {time.time() - t_start:.1f}s")
-    log(smi[0] if smi else "nvidia-smi: no output")
+    log(nvidia_smi())
     log(json.dumps({"kernels": rows}))
     print(json.dumps({
         "ok": True,

@@ -27,7 +27,7 @@ from dataclasses import dataclass, field as dc_field
 import torch
 
 from ..gates.circuit import BaseCircuitBuilder, PhysicalCircuit
-from ..utils.device import resolve_device
+from ..utils.device import resolve_device, stage_end
 from ..utils.fields import FR_BN254
 from .kzg import ParamsKZG, host_points
 from .poly import domain as get_domain
@@ -404,13 +404,7 @@ def keygen(
 
     def _kstage(label):
         nonlocal _t
-        if timings is None:
-            return
-        if device.type == "cuda":
-            torch.cuda.synchronize(device)
-        now = _time.time()
-        timings[label] = now - _t
-        _t = now
+        _t = stage_end(label, _t, device, timings, "keygen")
 
     if circuit is None:
         circuit = builder.synthesize()

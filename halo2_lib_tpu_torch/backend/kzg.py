@@ -47,9 +47,13 @@ from ..utils.device import resolve_device, stage_end
 from ..utils.fields import FQ_BN254, FR_BN254
 
 
-# Columns of at most this many points commit by double-and-add on the card
-# (the JAX package's COMMIT_SIMPLE_MAX default).
-COMMIT_SIMPLE_MAX = 1024
+# Columns of at most this many points commit by double-and-add on the card:
+# HALO2_COMMIT_SIMPLE_MAX, read at import with the JAX package's default,
+# up to the longest column commit_dbl_add's lane tree holds.
+COMMIT_SIMPLE_MAX = int(os.environ.get("HALO2_COMMIT_SIMPLE_MAX", "1024"))
+if COMMIT_SIMPLE_MAX > cf.COMMIT_MAX_LANES:
+    raise ValueError(f"HALO2_COMMIT_SIMPLE_MAX={COMMIT_SIMPLE_MAX}: commit_dbl_add takes columns "
+                     f"of at most {cf.COMMIT_MAX_LANES} points")
 
 _SRS_MAGIC_V1 = b"H2TPUSRS"
 _SRS_MAGIC_V2 = b"H2TPUSR2"  # v2: adds the Lagrange basis

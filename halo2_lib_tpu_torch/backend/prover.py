@@ -30,7 +30,9 @@ Protocol phases (mirrored by verifier.py):
 
 from __future__ import annotations
 
+import os
 import random as _random
+import sys
 import time as _time
 
 import numpy as np
@@ -38,6 +40,7 @@ import torch
 
 from ..gates.circuit import BaseCircuitBuilder, PhysicalCircuit
 from ..ops.limbs import N_LIMBS, ints_to_limbs, limbs_to_ints
+from ..ops.ntt import NTT_CHUNK
 from ..parallel.rows import RowLayout, Rows, lag_from_u16 as _lag_from_u16
 from ..parallel.sharded import ShardedNTT, sharded_commit, shard_devices
 from ..utils.device import resolve_device, stage_end
@@ -314,6 +317,129 @@ def _flatten_prover_phase(builder, t: int, ncols: int, nlookup: int, usable_rows
     return adv, _flatten_lookup_cols(builder, t, nlookup)
 
 
+def _selfcheck_h(
+    vk, pk, dom, u, advice_vals, lookup_vals, dyn_vals, instance_vals,
+    permuted_host, allz_lag, insts, host_col, theta, beta, gamma,
+):
+    """HALO2_PROVER_SELFCHECK=1 (the JAX package's ``_selfcheck_h``):
+    re-check every argument family pointwise on H with exact host ints,
+    from the host witness and the device's grand products, and print the
+    failures, each family's first failing row, or "all argument families
+    hold on H" (fault localization for "quotient degree overflow"). The
+    JAX families' messages come first; the last permutation z and the gates
+    follow (the JAX check has neither)."""
+    n = 1 << vk.k
+    ncols = len(vk.perm_columns)
+    chunks = perm_chunks(ncols)
+    nchunks = len(chunks)
+    ninst = len(insts)
+    z_all = dom.unpack(allz_lag)
+    zs = [z_all[j * n : (j + 1) * n] for j in range(nchunks + ninst + 1)]
+    sigma = dom.unpack(pk.perm_values)
+    sig = [sigma[c * n : (c + 1) * n] for c in range(ncols)]
+    # the JAX check's pow(DELTA, ci) and pow(omega, r) per row, as tables
+    bdelta = [beta * pow(DELTA, ci, P) % P for ci in range(ncols)]
+    omega_r = [1] * u
+    for r in range(1, u):
+        omega_r[r] = omega_r[r - 1] * dom.omega % P
+
+    def col_vals(cr):
+        if cr.kind == "advice":
+            return _pad(advice_vals[cr.index], n)
+        if cr.kind == "lookup":
+            return _pad(lookup_vals[cr.index], n)
+        if cr.kind == "fixed":
+            return pk.fixed_cols[cr.index]
+        if cr.kind == "instance":
+            return instance_vals[cr.index]
+        if cr.kind == "dynadv":
+            return dyn_vals[cr.index]
+        raise ValueError(cr.kind)
+
+    vals = [col_vals(cr) for cr in vk.perm_columns]
+    fails = []
+    # permutation chunks
+    for j, (s, e) in enumerate(chunks):
+        z = zs[j]
+        if z[0] != (1 if j == 0 else zs[j - 1][u]):
+            fails.append(f"permz{j} start row0")
+        for r in range(u):
+            left = z[(r + 1) % n]
+            right = z[r]
+            for ci in range(s, min(e, ncols)):
+                left = left * ((vals[ci][r] + beta * sig[ci][r] + gamma) % P) % P
+                right = right * ((vals[ci][r] + bdelta[ci] * omega_r[r] + gamma) % P) % P
+            if left != right:
+                fails.append(f"permz{j} row {r}")
+                break
+    # lookups
+    for li, (inp, tbl) in enumerate(insts):
+        a_in = compress_host([host_col(lb) for lb in inp], theta, u)
+        t_in = compress_host([host_col(lb) for lb in tbl], theta, u)
+        a_p = permuted_host[2 * li]
+        s_p = permuted_host[2 * li + 1]
+        zl = zs[nchunks + li]
+        if zl[0] != 1:
+            fails.append(f"lk{li} z row0 != 1")
+        if zl[u] * zl[u] % P != zl[u]:
+            fails.append(f"lk{li} z last not bool")
+        if (a_p[0] - s_p[0]) % P != 0:
+            fails.append(f"lk{li} e4 row0")
+        for r in range(u):
+            left = zl[(r + 1) % n] * ((a_p[r] + beta) % P) % P * ((s_p[r] + gamma) % P) % P
+            right = zl[r] * ((a_in[r] + beta) % P) % P * ((t_in[r] + gamma) % P) % P
+            if left != right:
+                fails.append(f"lk{li} e3 row {r}")
+                break
+            d = (a_p[r] - s_p[r]) % P
+            prev = a_p[r - 1] if r else a_p[n - 1]
+            if d and (a_p[r] - prev) % P != 0:
+                fails.append(f"lk{li} e5 row {r}")
+                break
+    # two families the JAX check leaves to the quotient, so that a witness
+    # that breaks the circuit (not only a faulty device stage) is named:
+    # the last permutation z at row u (l_last (z^2 - z)) and the gates
+    # q * (a + b c - d), which a tampered cell breaks while every grand
+    # product above still holds
+    if nchunks and zs[nchunks - 1][u] * zs[nchunks - 1][u] % P != zs[nchunks - 1][u]:
+        fails.append(f"permz{nchunks - 1} last not bool")
+    for c, sel in enumerate(pk.selectors):
+        a = advice_vals[c]
+        for r in range(n):
+            if sel[r] and (a[r] + a[(r + 1) % n] * a[(r + 2) % n] - a[(r + 3) % n]) % P:
+                fails.append(f"gate col {c} row {r}")
+                break
+    msg = "; ".join(fails) if fails else "all argument families hold on H"
+    print(f"[prover selfcheck] {msg}", file=sys.stderr, flush=True)
+
+
+def _selfcheck_roundtrip(L, ntt, coset, n: int, columns) -> None:
+    """HALO2_PROVER_SELFCHECK=2 (the JAX package's check before the
+    quotient): every (name, Lagrange, extended-coset) column stack must
+    round-trip ext -> coefficients (degree < n) -> Lagrange exactly. Prints
+    each failing column, then a count of the columns checked."""
+    checked = 0
+    for name, lag_t, ext_t in columns:
+        for c0 in range(0, lag_t.shape[0], NTT_CHUNK):
+            c1 = min(c0 + NTT_CHUNK, lag_t.shape[0])
+            back = coset.inverse_cols(ext_t[c0:c1])
+            top = L.take(back, n, back.shape[-1])
+            lag_back = L.gather(ntt.forward_cols(L.shard(L.take(back, 0, n))))
+            lag = L.gather(lag_t[c0:c1])
+            for i in range(c1 - c0):
+                msgs = []
+                if bool(top[i].any()):
+                    msgs.append("degree >= n")
+                bad = (lag_back[i] != lag[i]).any(0).nonzero()
+                if bad.numel():
+                    msgs.append(f"lag roundtrip mismatch at row {int(bad[0, 0])}")
+                if msgs:
+                    print(f"[prover selfcheck2] {name} col {c0 + i}: {'; '.join(msgs)}",
+                          file=sys.stderr, flush=True)
+            checked += c1 - c0
+    print(f"[prover selfcheck2] {checked} columns checked", file=sys.stderr, flush=True)
+
+
 @torch.inference_mode()
 def create_proof(
     params: ParamsKZG,
@@ -384,10 +510,10 @@ def create_proof(
         circuit = builder_or_circuit
     if instances is None:
         instances = circuit.instances
-    _t = stage_end("synthesize", _t, sync, timings)
+    _t = stage_end("synthesize", _t, sync, timings, "prover")
 
     rt = runtime_for(params, pk, device, mesh)
-    _t = stage_end("runtime", _t, sync, timings)
+    _t = stage_end("runtime", _t, sync, timings, "prover")
     L = rt.layout
     dom, df = rt.dom, rt.fd
     ntt, coset = rt.ntt, rt.coset
@@ -522,7 +648,7 @@ def create_proof(
             tr.write_point(pt)
     else:
         dyn_lag = empty
-    _t = stage_end("advice commits", _t, sync, timings)
+    _t = stage_end("advice commits", _t, sync, timings, "prover")
 
     theta = tr.squeeze_challenge()  # lookup input/table compression
 
@@ -553,7 +679,7 @@ def create_proof(
     permuted_lag = L.upload(df, _u16_cols(permuted_host, n))
     for pt in host_points(rt.commit(permuted_lag, "lagA")):
         tr.write_point(pt)
-    _t = stage_end("lookup permuted", _t, sync, timings)
+    _t = stage_end("lookup permuted", _t, sync, timings, "prover")
 
     beta = tr.squeeze_challenge()
     gamma = tr.squeeze_challenge()
@@ -660,13 +786,19 @@ def create_proof(
         zl = L.put(zl, u + 1, zb[nchunks:])
         zcols.append(zl)
     allz_lag = L.cat(zcols + [rand_lag])
+    selfcheck = os.environ.get("HALO2_PROVER_SELFCHECK")
+    if selfcheck == "1":
+        _selfcheck_h(
+            vk, pk, dom, u, advice_vals, lookup_vals, dyn_vals, instance_vals,
+            permuted_host, L.gather(allz_lag), insts, _host_col, theta, beta, gamma,
+        )
     com3 = rt.commit(allz_lag, "lagA")
     runtime_lag = L.cat([adv_lag, lk_lag, dyn_lag, inst_lag, permuted_lag, allz_lag])
     runtime_coeffs = ntt.inverse_cols(runtime_lag)
     runtime_ext = coset.forward_cols(L.pad(runtime_coeffs, dom.n_ext))
     for pt in host_points(com3):
         tr.write_point(pt)
-    _t = stage_end("grand products", _t, sync, timings)
+    _t = stage_end("grand products", _t, sync, timings, "prover")
 
     y = tr.squeeze_challenge()
 
@@ -679,6 +811,10 @@ def create_proof(
     chal_dev = dom.pack([challenges[c] for c, _, _ in vk.challenge_pins] or [0], device)
 
     def quotient(ext, ych):
+        """sum_i expr_i y^(K-1-i) / Z_H on the extended coset. Each family's
+        expressions fold into the sum as soon as they are made and its
+        temporaries go (the same field sum as stacking all K at once, so the
+        same bytes, with one family's working set on the card at a time)."""
         ne = dom.n_ext
         o = 0
         adv_e, o = ext[o : o + na], o + na
@@ -689,7 +825,18 @@ def create_proof(
         permz_e, o = ext[o : o + nchunks], o + nchunks
         lkz_e, o = ext[o : o + ninst], o + ninst
         beta_e, gamma_e = beta_c, gamma_c
-        exprs = []
+        ypows = dom.pows_of(ych, K).flip(-1)  # y^(K-1) ... y^0, [16, K]
+        ycol = ypows.transpose(0, 1)[:, :, None]  # [K, 16, 1]
+        acc, done = None, 0
+
+        def fold(exprs):
+            """Add the next expressions [m, 16, ne], in order, times their
+            powers of y."""
+            nonlocal acc, done
+            m = exprs.shape[0]
+            part = _tree_sum(df, df._mont_mul(exprs, ycol[done : done + m]), L.cat)
+            acc = part if acc is None else df._add(acc, part)
+            done += m
 
         def rot(t, r):
             return L.roll(t, -4 * r)
@@ -698,24 +845,28 @@ def create_proof(
         if na:
             sel_e = L.stack([T["ext"][tix[f"sel{i}"]] for i in range(na)])
             g = df._sub(df._add(adv_e, df._mont_mul(rot(adv_e, 1), rot(adv_e, 2))), rot(adv_e, 3))
-            gate_e = df._mont_mul(sel_e, g)
-            exprs.extend(gate_e[i] for i in range(na))
+            fold(df._mont_mul(sel_e, g))
+            del sel_e, g
 
         # 1b. challenge pins: L_row_i * (advice_col - challenge)
+        pins = []
         for i, (_c, flat_col, _row) in enumerate(vk.challenge_pins):
             q_e = T["ext"][tix[f"pinrow{i}"]]
             diff = df._sub(adv_e[flat_col], chal_dev[:, i : i + 1])
-            exprs.append(df._mont_mul(q_e, diff))
+            pins.append(df._mont_mul(q_e, diff))
+        if pins:
+            fold(L.stack(pins))
+        del pins
 
         # 2. permutation
         if nchunks:
-            exprs.append(df._mont_mul(T["l0_e"], df._sub(one, permz_e[0])))
+            ends = [df._mont_mul(T["l0_e"], df._sub(one, permz_e[0]))]
             zl = permz_e[-1]
-            exprs.append(df._mont_mul(T["llast_e"], df._sub(df._mont_mul(zl, zl), zl)))
+            ends.append(df._mont_mul(T["llast_e"], df._sub(df._mont_mul(zl, zl), zl)))
             for j in range(1, nchunks):
-                exprs.append(
-                    df._mont_mul(T["l0_e"], df._sub(permz_e[j], rot(permz_e[j - 1], u)))
-                )
+                ends.append(df._mont_mul(T["l0_e"], df._sub(permz_e[j], rot(permz_e[j - 1], u))))
+            fold(L.stack(ends))
+            del ends, zl
             parts = []
             if vk.num_fixed:
                 parts.append(L.stack([T["ext"][tix[f"fix{i}"]] for i in range(vk.num_fixed)]))
@@ -728,19 +879,23 @@ def create_proof(
             if nd:
                 parts.append(dyn_e)
             vals_e = L.cat(parts)
+            del parts
             sigma_e = L.stack([T["ext"][tix[f"sigma{ci}"]] for ci in range(ncols)])
             bd = scal[:, 3:].transpose(0, 1)[:, :, None]
-            left_f = df._add(df._add(vals_e, df._mont_mul(sigma_e, beta_e)), gamma_e)
-            right_f = df._add(df._add(vals_e, df._mont_mul(T["x_poly_e"][None], bd)), gamma_e)
             width = perm_chunks(ncols)[0][1] - perm_chunks(ncols)[0][0]
-            total = nchunks * width
-            onep = L.ones(df, total - ncols, ne)
-            lf = L.cat([left_f, onep]).reshape(nchunks, width, N_LIMBS, ne)
-            rf = L.cat([right_f, onep]).reshape(nchunks, width, N_LIMBS, ne)
+            onep = L.ones(df, nchunks * width - ncols, ne)
+            lf = df._add(df._add(vals_e, df._mont_mul(sigma_e, beta_e)), gamma_e)
+            del sigma_e
+            lf = L.cat([lf, onep]).reshape(nchunks, width, N_LIMBS, ne)
             left = df._mont_mul(rot(permz_e, 1), _tree_prod(df, lf.transpose(0, 1), L.cat))
+            del lf
+            rf = df._add(df._add(vals_e, df._mont_mul(T["x_poly_e"][None], bd)), gamma_e)
+            del vals_e
+            rf = L.cat([rf, onep]).reshape(nchunks, width, N_LIMBS, ne)
             right = df._mont_mul(permz_e, _tree_prod(df, rf.transpose(0, 1), L.cat))
-            chunk_e = df._mont_mul(T["lact_e"][None], df._sub(left, right))
-            exprs.extend(chunk_e[j] for j in range(nchunks))
+            del rf, onep
+            fold(df._mont_mul(T["lact_e"][None], df._sub(left, right)))
+            del left, right
 
         # 3. lookups (theta-compressed input/table expressions per instance)
         if ninst:
@@ -751,6 +906,7 @@ def create_proof(
                 return runtime_pre_e[idx] if kind == "rt" else T["ext"][idx]
 
             a_in_e, t_in_e = _compressed_stacks(get_ext, scal[:, 0:1], (ne,))
+            del runtime_pre_e
             a_p_e = perm_e[0::2]
             s_p_e = perm_e[1::2]
             l0b = T["l0_e"][None]
@@ -765,19 +921,19 @@ def create_proof(
                 df._mont_mul(lkz_e, df._add(a_in_e, beta_e)), df._add(t_in_e, gamma_e)
             )
             e3 = df._mont_mul(lab, df._sub(left, right))
+            del left, right, a_in_e, t_in_e
             diff = df._sub(a_p_e, s_p_e)
             e4 = df._mont_mul(l0b, diff)
             e5 = df._mont_mul(df._mont_mul(lab, diff), df._sub(a_p_e, rot(a_p_e, -1)))
-            for j in range(ninst):
-                exprs.extend([e1[j], e2[j], e3[j], e4[j], e5[j]])
+            # instance-major: e1..e5 of instance 0, then of instance 1, ...
+            fold(L.stack([e1, e2, e3, e4, e5], dim=1).reshape(5 * ninst, N_LIMBS, ne))
 
-        assert len(exprs) == K
-        stack = L.stack(exprs)  # [K, 16, ne]
-        ypows = dom.pows_of(ych, K).flip(-1)  # y^(K-1) ... y^0, [16, K]
-        ycol = ypows.transpose(0, 1)[:, :, None]  # [K, 16, 1]
-        acc = _tree_sum(df, df._mont_mul(stack, ycol), L.cat)
+        assert done == K
         return df._mont_mul(acc, T["zh_inv"])
 
+    if selfcheck == "2":
+        _selfcheck_roundtrip(L, ntt, coset, n, (
+            ("runtime", runtime_lag, runtime_ext), ("tables", rt.tbl_lag, rt.tbl_ext)))
     h_ext = quotient(runtime_ext, dom.pack([y], device))
     h_coeffs = coset.inverse_cols(h_ext[None])[0]
     # quotient pieces: j = cs_degree - 1 (halo2 quotient_poly_degree); the top
@@ -790,7 +946,7 @@ def create_proof(
     com4 = rt.commit(h_pieces, "monoA")
     for pt in host_points(com4):
         tr.write_point(pt)
-    _t = stage_end("quotient", _t, sync, timings)
+    _t = stage_end("quotient", _t, sync, timings, "prover")
 
     x = tr.squeeze_challenge()
     pts = point_values(x, k)
@@ -823,7 +979,7 @@ def create_proof(
     for label, pts_labels in plan:
         for pl in pts_labels:
             tr.write_scalar(evals[label][pl])
-    _t = stage_end("evals", _t, sync, timings)
+    _t = stage_end("evals", _t, sync, timings, "prover")
 
     # === SHPLONK h_open ====================================================
     v = tr.squeeze_challenge()
@@ -906,7 +1062,7 @@ def create_proof(
     q_coeffs = ntt.inverse_cols(q_evals[None])[0]
     com7 = rt.commit(q_coeffs[None], "monoA")
     tr.write_point(host_points(com7)[0])
-    _t = stage_end("shplonk", _t, sync, timings)
+    _t = stage_end("shplonk", _t, sync, timings, "prover")
     return tr.finalize()
 
 

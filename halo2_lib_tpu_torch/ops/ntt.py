@@ -11,6 +11,9 @@ w), and interleaves the results at block granularity s. One ``ntt_small``
 launch runs every stage of every column of a call (the JAX package runs a
 ``lax.fori_loop`` of butterfly kernels), with the diagonal scalings folded
 into its load and store: the inverse's 1/n, and a coset's shift powers.
+Above 2^11 points (only HALO2_NO_FOURSTEP_NTT=1 sends them here) ``NTT``
+runs the JAX package's stage loop, one ``ntt_butterfly`` launch a stage
+(``ntt_stages``).
 
 ``FourStepNTT`` (n >= 2^12): n = A1 * ... * Ak, ascending factors of at most
 128. Level l runs every stage of its length-Al sub-transforms in one
@@ -18,8 +21,9 @@ into its load and store: the inverse's 1/n, and a coset's shift powers.
 transposes move the data between levels.
 
 ``new_ntt`` picks, as the JAX package does on the TPU: ``FourStepNTT`` from
-2^12 points up, the digit-plane DFT (``ops/ntt_mxu.py`` ``MxuNTT``) for
-2^6..2^11 points on a CUDA device, ``NTT`` otherwise.
+2^12 points up (unless HALO2_NO_FOURSTEP_NTT=1), the digit-plane DFT
+(``ops/ntt_mxu.py`` ``MxuNTT``) from 2^6 points on a CUDA device (unless
+HALO2_NO_MXU_NTT=1), ``NTT`` otherwise.
 """
 
 from __future__ import annotations
@@ -88,10 +92,10 @@ def dispatch_cols(x: torch.Tensor, chunk: int | None, fn) -> torch.Tensor:
 
 
 class NTT:
-    """NTT/INTT of size 2^log_n over Fr (2 <= n <= 2^11), on limb-major
-    [..., 16, n] tensors on `device`: one ntt_small launch per call."""
-
-    CHUNK = None  # forward_cols/inverse_cols: every column in one launch
+    """NTT/INTT of size 2^log_n over Fr, on limb-major [..., 16, n] tensors
+    on `device`: one ntt_small launch per call up to 2^11 points; above, the
+    JAX package's NTT, a stage loop of one ntt_butterfly launch a stage
+    (``ntt_stages``; only HALO2_NO_FOURSTEP_NTT=1 sends such lengths here)."""
 
     def __init__(self, df: DeviceField, log_n: int, device):
         field = df.field
@@ -106,11 +110,14 @@ class NTT:
         self.omega_inv = pow(w, p - 2, p)
         self.n_inv = pow(self.n, p - 2, p)
         self.n_inv_mont = df.pack(self.n_inv, device=self.device)
+        # forward_cols/inverse_cols: every column in one ntt_small launch;
+        # the stage loop's temporaries bounded as FourStepNTT's
+        self.CHUNK = None if self.n <= cf.NTT_SMALL_MAX else NTT_CHUNK
         self._init_tables()
 
     def _init_tables(self) -> None:
-        if not 2 <= self.n <= cf.NTT_SMALL_MAX:
-            raise ValueError(f"radix-2 NTT needs 2 <= n <= {cf.NTT_SMALL_MAX}, got {self.n}")
+        if self.n < 2:
+            raise ValueError(f"radix-2 NTT needs n >= 2, got {self.n}")
         # the [16, n/2] twiddle rows of the forward and the inverse transform
         self.tw = {
             True: pows_host(self.df, self.omega, self.n // 2, self.device),
@@ -119,7 +126,11 @@ class NTT:
 
     def _small(self, x: torch.Tensor, forward: bool, pre=None, post=None) -> torch.Tensor:
         lead = tuple(x.shape[:-2])
-        y = cf.ntt_small(self.df.fid, x.reshape(-1, N_LIMBS, self.n), self.tw[forward], pre, post)
+        x = x.reshape(-1, N_LIMBS, self.n)
+        if self.n <= cf.NTT_SMALL_MAX:
+            y = cf.ntt_small(self.df.fid, x, self.tw[forward], pre, post)
+        else:
+            y = ntt_stages(self.df.fid, x, self.tw[forward], pre, post)
         return y.reshape(lead + (N_LIMBS, self.n))
 
     def forward(self, coeffs: torch.Tensor, pre: torch.Tensor | None = None) -> torch.Tensor:
@@ -241,6 +252,27 @@ class FourStepNTT(NTT):
         return pows_host(self.df, root, self.n, self.device)
 
 
+def ntt_stages(fid: int, x: torch.Tensor, tw: torch.Tensor, pre=None, post=None) -> torch.Tensor:
+    """The radix-2 Stockham DIF transform of x [C, 16, N] as the JAX
+    package's NTT runs it: the `pre` product (one mont_mul launch), then per
+    stage (n, s) one ntt_butterfly launch over the two halves with the
+    twiddles w^(p s) at lane p s + j, and the interleave of its outputs (a
+    torch stack); then the `post` product. tw: [16, N/2] powers of the root.
+    The same values as ntt_small's one launch, at any N."""
+    C, _, N = x.shape
+    if pre is not None:
+        x = cf.mont_mul(fid, x, pre)
+    n, s = N, 1
+    while n > 1:
+        m = n // 2
+        wp = tw[:, ::s][:, :m, None].expand(N_LIMBS, m, s).reshape(N_LIMBS, N // 2)
+        top, bot = cf.ntt_butterfly(fid, x[..., : N // 2], x[..., N // 2 :], wp)
+        x = torch.stack([top.reshape(C, N_LIMBS, m, s), bot.reshape(C, N_LIMBS, m, s)], dim=-2)
+        x = x.reshape(C, N_LIMBS, N)
+        n, s = m, 2 * s
+    return x if post is None else cf.mont_mul(fid, x, post)
+
+
 # the sizes the digit-plane DFT (ops/ntt_mxu.py) takes on a CUDA device
 MXU_MIN_LOG = 6
 
@@ -248,12 +280,14 @@ MXU_MIN_LOG = 6
 def new_ntt(df: DeviceField, log_n: int, device):
     """NTT factory, by the JAX package's rule (halo2_lib_tpu/ops/ntt.py:
     263-285) with the accelerator read as a CUDA device: the four-step
-    transform from 2^12 points up; on a CUDA device the digit-plane DFT
-    (ops/ntt_mxu.py, one dft_ntt launch a call) for 2^6..2^11 points
-    unless HALO2_NO_MXU_NTT=1; radix-2 Stockham (one ntt_small launch)
-    otherwise, and on the CPU. All give the same values."""
+    transform from 2^12 points up unless HALO2_NO_FOURSTEP_NTT=1; on a CUDA
+    device the digit-plane DFT (ops/ntt_mxu.py; one dft_ntt launch a call
+    up to 2^11 points) from 2^6 points unless HALO2_NO_MXU_NTT=1; radix-2
+    Stockham otherwise, and on the CPU (one ntt_small launch a call up to
+    2^11 points, a stage loop of ntt_butterfly launches above). All give
+    the same values."""
     device = torch.device(device)
-    if log_n >= MIN_FOURSTEP.bit_length() - 1:
+    if log_n >= MIN_FOURSTEP.bit_length() - 1 and os.environ.get("HALO2_NO_FOURSTEP_NTT") != "1":
         return FourStepNTT(df, log_n, device)
     if (device.type == "cuda" and log_n >= MXU_MIN_LOG
             and os.environ.get("HALO2_NO_MXU_NTT") != "1"):

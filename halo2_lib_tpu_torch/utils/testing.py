@@ -13,6 +13,8 @@ byte-identical to the goldens that script writes.
 
 from __future__ import annotations
 
+import json
+import os
 import random
 import time as _time
 
@@ -472,3 +474,141 @@ def old_g1_batch_mul(scalars, Gx, Gy):
     c = cf._consts(cf.FQ, scalars.device)
     x2, y2 = (t.to(torch.int64).expand(16, n) for t in (Gx, Gy))
     return tuple(t.to(torch.int32) for t in cf._chains64(scalars.to(torch.int64), x2, y2, c))
+
+
+# The reference's MSM benchmark circuit (configs/bn254/msm_circuit.config:
+# degree 17, batch 100, window 4, 88-bit limbs x 3, lookup_bits 16; its
+# .t.config: degree 13, batch 8, lookup_bits 12), built as
+# tests/test_configs.py:run_msm_config builds it.
+MSM_CONFIG, MSM_T_CONFIG = "bn254/msm_circuit.config", "bn254/msm_circuit.t.config"
+_CONFIG_DIR = os.path.join(os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__)))), "configs")
+
+
+def load_config(rel: str) -> dict:
+    """A circuit config of the repo's configs/ directory, e.g. MSM_CONFIG."""
+    with open(os.path.join(_CONFIG_DIR, rel)) as f:
+        return json.load(f)
+
+
+def msm_inputs(batch: int, seed: int = 91):
+    """(points, scalars): `batch` random BN254 G1 points and full-width
+    scalars from random.Random(seed) (run_msm_config's inputs)."""
+    rng = random.Random(seed)
+    pts = [BN254_G1.random_point(rng) for _ in range(batch)]
+    return pts, [BN254_G1.random_scalar(rng) for _ in range(batch)]
+
+
+def msm_witness(builder: BaseCircuitBuilder, cfg: dict, inputs=None, rng: random.Random | None = None):
+    """EccChip.variable_base_msm of `inputs` (msm_inputs of the config's
+    batch when None) on a MOCK or PROVER builder's pool: the serial MSM up to
+    25 points, multi_exp_par above (clump factor = the config's window).
+    Random points come from `rng` (ecc/ec.py's DEFAULT_RNG when None).
+    Asserts the in-circuit point equals the host MSM."""
+    pts, scalars = msm_inputs(cfg["batch_size"]) if inputs is None else inputs
+    fp_chip = FpChip(builder.range_chip(), cfg["limb_bits"], cfg["num_limbs"], BN254_G1.base)
+    chip = EccChip(fp_chip, BN254_G1, rng)
+    pool = builder.pool(0)
+    ctx = pool.main()
+    assigned = [chip.load_private(ctx, p) for p in pts]
+    scs = [[ctx.load_witness(s)] for s in scalars]
+    out = chip.variable_base_msm(pool, assigned, scs, max_bits=254, window_bits=cfg["window_bits"])
+    got = (fp_chip.get_assigned_value(out.x), fp_chip.get_assigned_value(out.y))
+    if got != BN254_G1.msm(pts, scalars):
+        raise AssertionError("in-circuit MSM != host MSM")
+    return builder
+
+
+def msm_circuit(cfg: dict, stage: CircuitBuilderStage = CircuitBuilderStage.MOCK,
+                rng: random.Random | None = None) -> BaseCircuitBuilder:
+    """The MSM circuit of `cfg` (load_config(MSM_CONFIG) or MSM_T_CONFIG) on a
+    fresh builder, sized by calculate_params(minimum_rows=9)."""
+    builder = BaseCircuitBuilder.from_stage(stage).use_k(cfg["degree"])
+    builder.set_lookup_bits(cfg["lookup_bits"])
+    msm_witness(builder, cfg, None, rng)
+    builder.calculate_params(minimum_rows=9)
+    return builder
+
+
+# Small MSM gadget cases, each at a k and lookup_bits that keep the builder
+# to seconds: tests/test_ecc.py's test_msm_small ("serial"),
+# test_msm_with_identity_and_cancellation ("identity": its scalars 5, 5, 7
+# taken as 8-bit) and test_fixed_base_msm ("fixed"), and multi_exp_par over
+# 26 points with 16-bit scalars ("pippenger").
+# name -> (k, lookup_bits, input seed, points, max_bits)
+MSM_CASES = {
+    "serial": (14, 13, 14, 3, 254),
+    "identity": (14, 13, 15, 3, 8),
+    "pippenger": (14, 13, 19, 26, 16),
+    "fixed": (14, 13, 17, 4, 254),
+}
+
+
+def msm_case_inputs(name: str):
+    """(points, scalars) of MSM_CASES[name]; None is the point at infinity."""
+    _k, _lb, seed, npts, max_bits = MSM_CASES[name]
+    rng = random.Random(seed)
+    if name == "identity":
+        P = BN254_G1.random_point(rng)
+        return [P, BN254_G1.neg(P), None], [5, 5, 7]
+    pts = [BN254_G1.random_point(rng) for _ in range(npts)]
+    if max_bits == 254:
+        return pts, [BN254_G1.random_scalar(rng) for _ in range(npts)]
+    return pts, [rng.randrange(1 << max_bits) for _ in range(npts)]
+
+
+def msm_case_witness(builder: BaseCircuitBuilder, name: str, rng: random.Random | None = None):
+    """MSM_CASES[name] on a MOCK or PROVER builder's pool: variable_base_msm
+    (points loaded with assign_point, so the identity loads as (0, 0)) or,
+    for "fixed", fixed_base_msm. Returns the in-circuit result as host ints
+    ((0, 0) for the identity) and asserts it equals the host MSM."""
+    _k, _lb, _seed, _n, max_bits = MSM_CASES[name]
+    pts, scalars = msm_case_inputs(name)
+    fp_chip = FpChip(builder.range_chip(), 88, 3, BN254_G1.base)
+    chip = EccChip(fp_chip, BN254_G1, rng)
+    pool = builder.pool(0)
+    ctx = pool.main()
+    scs = [[ctx.load_witness(s)] for s in scalars]
+    if name == "fixed":
+        out = chip.fixed_base_msm(pool, pts, scs, max_scalar_bits_per_cell=max_bits)
+    else:
+        assigned = [chip.assign_point(ctx, p) for p in pts]
+        out = chip.variable_base_msm(pool, assigned, scs, max_bits=max_bits)
+    got = (fp_chip.get_assigned_value(out.x), fp_chip.get_assigned_value(out.y))
+    want = BN254_G1.msm([p for p in pts if p is not None], [s for p, s in zip(pts, scalars) if p is not None])
+    if got != (want if want is not None else (0, 0)):
+        raise AssertionError(f"MSM case {name}: in-circuit MSM != host MSM")
+    return got
+
+
+def msm_case_circuit(name: str, rng: random.Random | None = None) -> BaseCircuitBuilder:
+    """The MOCK builder of MSM_CASES[name], sized by calculate_params."""
+    k, lookup_bits = MSM_CASES[name][:2]
+    builder = BaseCircuitBuilder.from_stage(CircuitBuilderStage.MOCK).use_k(k)
+    builder.set_lookup_bits(lookup_bits)
+    msm_case_witness(builder, name, rng)
+    builder.calculate_params(minimum_rows=9)
+    return builder
+
+
+def circuit_digests(circuit) -> dict[str, str]:
+    """SHA-256 of each part of a synthesized circuit, column by column (a
+    k=17 circuit's columns are too long for one repr): advice columns and
+    selectors per phase, lookup-advice and fixed columns, copies, instances."""
+    import hashlib
+
+    def digest(seq) -> str:
+        h = hashlib.sha256()
+        for item in seq:
+            h.update(repr(item).encode())
+        return h.hexdigest()
+
+    copies = circuit.copies
+    return {
+        "advice": digest(col for fp in circuit.phases for col in fp.columns),
+        "selectors": digest(col for fp in circuit.phases for col in fp.selectors),
+        "lookup": digest(col for cols in circuit.lookup_cols for col in cols),
+        "fixed": digest(circuit.fixed_cols),
+        "copies": digest(copies[i : i + 65536] for i in range(0, len(copies), 65536)),
+        "instances": digest(circuit.instances),
+        "num_copies": str(len(copies)),
+    }

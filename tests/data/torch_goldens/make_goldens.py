@@ -65,6 +65,18 @@ itself,
   ``circuit_sha256``, the digest of the keygen builder's synthesized
   circuit (``circuit_digest``).
 
+* ``msm_digests.json`` (with ``--msm [cases] [t_config] [full]``, which
+  freezes the parts named, all three by default, keeps the others and
+  nothing else): the MSM gadget cases of ``MSM_CASES`` (config params,
+  break points, result, ``circuit_digests``), the reference's MSM circuit
+  at ``configs/bn254/msm_circuit.t.config`` (those, its SRS by
+  ``host_srs(13)``, vk and seed-0 proof digests; about an hour of CPU and
+  20 GB, the stages after the grand products run op by op) and at ``msm_circuit.config``
+  (k=17: those and its SRS; its JAX keygen passed 24 GB of RSS in its
+  commit stage and is left to a host with 64 GB or more to spare), each
+  built after reseeding the JAX ``ecc/ec.py`` generator to
+  ``MSM_RNG_SEED``; rewritten after each stage.
+
 Run from the repository root:
 
     JAX_PLATFORMS=cpu python tests/data/torch_goldens/make_goldens.py [--k15] [--ecdsa] [--ops-only]
@@ -73,6 +85,7 @@ Run from the repository root:
     JAX_PLATFORMS=cpu python tests/data/torch_goldens/make_goldens.py --pairing
     JAX_PLATFORMS=cpu python tests/data/torch_goldens/make_goldens.py --poseidon
     JAX_PLATFORMS=cpu python tests/data/torch_goldens/make_goldens.py --mxu
+    JAX_PLATFORMS=cpu python tests/data/torch_goldens/make_goldens.py --msm [cases] [t_config] [full]
 
 The circuits are built here with the JAX eDSL, step for step as the port's
 ``utils/testing.py`` builds them with its own copy (the ECDSA circuit with
@@ -83,6 +96,7 @@ circuits first in a fresh process: it runs before every other freeze.
 
 from __future__ import annotations
 
+import contextlib
 import hashlib
 import json
 import os
@@ -945,6 +959,227 @@ def freeze_poseidon() -> None:
            {"circuit_sha256": np.frombuffer(bytes.fromhex(digest), dtype=np.uint8)})
 
 
+# --msm: the MSM gadgets and the reference's MSM benchmark circuit
+# (configs/bn254/msm_circuit.config and its .t.config), built step for step
+# as the port's utils/testing.py builds them. Each build reseeds the JAX
+# ecc/ec.py generator to MSM_RNG_SEED first; the tests reseed the port's.
+MSM_RNG_SEED = 0x5EC0
+MSM_CASES = {  # name -> (k, lookup_bits, input seed, points, max_bits)
+    "serial": (14, 13, 14, 3, 254),
+    "identity": (14, 13, 15, 3, 8),
+    "pippenger": (14, 13, 19, 26, 16),
+    "fixed": (14, 13, 17, 4, 254),
+}
+
+
+def load_config(rel: str) -> dict:
+    with open(os.path.join(ROOT, "configs", rel)) as f:
+        return json.load(f)
+
+
+def msm_case_inputs(name: str):
+    from halo2_lib_tpu.utils.curves import BN254_G1
+
+    _k, _lb, seed, npts, max_bits = MSM_CASES[name]
+    rng = random.Random(seed)
+    if name == "identity":
+        P = BN254_G1.random_point(rng)
+        return [P, BN254_G1.neg(P), None], [5, 5, 7]
+    pts = [BN254_G1.random_point(rng) for _ in range(npts)]
+    if max_bits == 254:
+        return pts, [BN254_G1.random_scalar(rng) for _ in range(npts)]
+    return pts, [rng.randrange(1 << max_bits) for _ in range(npts)]
+
+
+def msm_case_circuit(name: str):
+    """The MOCK builder of MSM_CASES[name] and the in-circuit result."""
+    from halo2_lib_tpu.ecc.ec import EccChip
+    from halo2_lib_tpu.ecc.fp import FpChip
+    from halo2_lib_tpu.utils.curves import BN254_G1
+
+    k, lookup_bits, _seed, _n, max_bits = MSM_CASES[name]
+    pts, scalars = msm_case_inputs(name)
+    builder = BaseCircuitBuilder.from_stage(CircuitBuilderStage.MOCK).use_k(k)
+    builder.set_lookup_bits(lookup_bits)
+    fp_chip = FpChip(builder.range_chip(), 88, 3, BN254_G1.base)
+    chip = EccChip(fp_chip, BN254_G1)
+    pool = builder.pool(0)
+    ctx = pool.main()
+    scs = [[ctx.load_witness(s)] for s in scalars]
+    if name == "fixed":
+        out = chip.fixed_base_msm(pool, pts, scs, max_scalar_bits_per_cell=max_bits)
+    else:
+        out = chip.variable_base_msm(pool, [chip.assign_point(ctx, p) for p in pts], scs, max_bits=max_bits)
+    builder.calculate_params(minimum_rows=9)
+    return builder, [fp_chip.get_assigned_value(out.x), fp_chip.get_assigned_value(out.y)]
+
+
+def msm_witness(builder, cfg: dict):
+    """tests/test_configs.py:run_msm_config's witness on a MOCK or PROVER builder."""
+    from halo2_lib_tpu.ecc.ec import EccChip
+    from halo2_lib_tpu.ecc.fp import FpChip
+    from halo2_lib_tpu.utils.curves import BN254_G1
+
+    rng = random.Random(91)
+    pts = [BN254_G1.random_point(rng) for _ in range(cfg["batch_size"])]
+    scalars = [BN254_G1.random_scalar(rng) for _ in range(cfg["batch_size"])]
+    fp_chip = FpChip(builder.range_chip(), cfg["limb_bits"], cfg["num_limbs"], BN254_G1.base)
+    chip = EccChip(fp_chip, BN254_G1)
+    pool = builder.pool(0)
+    ctx = pool.main()
+    assigned = [chip.load_private(ctx, p) for p in pts]
+    scs = [[ctx.load_witness(s)] for s in scalars]
+    out = chip.variable_base_msm(pool, assigned, scs, max_bits=254, window_bits=cfg["window_bits"])
+    got = (fp_chip.get_assigned_value(out.x), fp_chip.get_assigned_value(out.y))
+    assert got == BN254_G1.msm(pts, scalars)
+    return builder
+
+
+def msm_circuit(cfg: dict):
+    builder = BaseCircuitBuilder.from_stage(CircuitBuilderStage.MOCK).use_k(cfg["degree"])
+    builder.set_lookup_bits(cfg["lookup_bits"])
+    msm_witness(builder, cfg)
+    builder.calculate_params(minimum_rows=9)
+    return builder
+
+
+def circuit_digests(circuit) -> dict:
+    """SHA-256 of each part of a synthesized circuit, column by column (the
+    port's utils/testing.py circuit_digests)."""
+
+    def digest(seq) -> str:
+        h = hashlib.sha256()
+        for item in seq:
+            h.update(repr(item).encode())
+        return h.hexdigest()
+
+    copies = circuit.copies
+    return {
+        "advice": digest(col for fp in circuit.phases for col in fp.columns),
+        "selectors": digest(col for fp in circuit.phases for col in fp.selectors),
+        "lookup": digest(col for cols in circuit.lookup_cols for col in cols),
+        "fixed": digest(circuit.fixed_cols),
+        "copies": digest(copies[i : i + 65536] for i in range(0, len(copies), 65536)),
+        "instances": digest(circuit.instances),
+        "num_copies": str(len(copies)),
+    }
+
+
+@contextlib.contextmanager
+def _eager_stages(names=("s4b", "hcomb", "s5", "s6", "s7"), max_elems: int = 1 << 24):
+    """Run the JAX prover's stages after the grand products (the quotient,
+    the evaluations, SHPLONK) op by op instead of as jits, with each
+    Montgomery product taken in slices of its lanes: XLA:CPU's executables
+    for the .t.config's 181 + 30 advice columns passed 29 GB (the quotient)
+    and 36 GB (the evaluations) of RSS, and the product's one-hot
+    convolution makes a [..., 16, 16, B] temporary, 19 GB eagerly at
+    [576, 16, 2^15]. The same values either way (the product is lane by
+    lane)."""
+    import jax.numpy as jnp
+
+    from halo2_lib_tpu.backend.prover import ProverRuntime
+    from halo2_lib_tpu.ops.limbs import DeviceField
+
+    real_jit, real_mul = ProverRuntime.jit, DeviceField._mont_mul_xla
+
+    def sliced_mul(self, a, b):
+        shape = jnp.broadcast_shapes(a.shape, b.shape)
+        lanes = shape[-1]
+        step = max(1, max_elems // max(1, int(np.prod(shape[:-1]))))
+        if lanes <= step:
+            return real_mul(self, a, b)
+
+        def cut(x, i):
+            return x[..., i : i + step] if x.shape[-1] == lanes else x
+
+        return jnp.concatenate(
+            [real_mul(self, cut(a, i), cut(b, i)) for i in range(0, lanes, step)], axis=-1)
+
+    def eager(fn):
+        def call(*args):
+            DeviceField._mont_mul_xla = sliced_mul
+            try:
+                return fn(*args)
+            finally:
+                DeviceField._mont_mul_xla = real_mul
+        return call
+
+    ProverRuntime.jit = lambda self, name, fn: eager(fn) if name in names else real_jit(self, name, fn)
+    try:
+        yield
+    finally:
+        ProverRuntime.jit = real_jit
+
+
+def freeze_msm(parts=("cases", "t_config", "full")) -> None:
+    """msm_digests.json: ("cases") the MSM_CASES builders' config params,
+    break points, result and circuit digests; ("t_config") the .t.config
+    circuit's, with its SRS (host_srs(13)), vk and seed-0 proof digests
+    (keygen on the MOCK builder, the pinned PROVER builder's witness after a
+    reseed); ("full") the full config's (k=17, batch 100), then its SRS and
+    vk digests. The other parts of an existing file are kept; the file is
+    rewritten after each stage with what is known so far."""
+    import resource
+
+    from halo2_lib_tpu.ecc import ec as jax_ec
+    from halo2_lib_tpu.utils.pinning import pinning_of
+
+    t = time.time()
+    path = os.path.join(HERE, "msm_digests.json")
+    out = {"rng_seed": MSM_RNG_SEED, "cases": {}}
+    if os.path.exists(path):
+        with open(path) as f:
+            out.update({k: v for k, v in json.load(f).items() if k not in parts})
+
+    def stage(name: str) -> None:
+        with open(path, "w") as f:
+            json.dump(out, f, indent=1)
+            f.write("\n")
+        peak = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 2**20
+        print(f"msm: {name} done at {time.time() - t:.1f}s, peak RSS {peak:.2f} GiB", flush=True)
+
+    def shape(builder, circuit) -> dict:
+        return {
+            "config_params": builder.config_params.to_json(),
+            "break_points": builder.break_points(),
+            "digests": circuit_digests(circuit),
+        }
+
+    for name in MSM_CASES if "cases" in parts else ():
+        jax_ec._RNG.seed(MSM_RNG_SEED)
+        builder, value = msm_case_circuit(name)
+        out["cases"][name] = dict(shape(builder, builder.synthesize()), value=value)
+        stage(f"case {name}")
+
+    for key, rel in (("t_config", "bn254/msm_circuit.t.config"), ("full", "bn254/msm_circuit.config")):
+        if key not in parts:
+            continue
+        cfg = load_config(rel)
+        jax_ec._RNG.seed(MSM_RNG_SEED)
+        builder = msm_circuit(cfg)
+        circuit = builder.synthesize()
+        out[key] = dict(shape(builder, circuit), config=cfg)
+        stage(f"{key} MOCK builder")
+        del circuit
+        params = host_srs(cfg["degree"])
+        out[key]["srs_sha256"] = hashlib.sha256(params.to_halo2_bytes()).hexdigest()
+        stage(f"{key} SRS")
+        pk = keygen(params, builder)
+        out[key]["vk_sha256"] = hashlib.sha256(pk.vk.to_bytes()).hexdigest()
+        stage(f"{key} keygen")
+        if key == "full":
+            break  # no JAX proof at k=17: the k=19 pairing one passed 36 GiB of RSS
+        pb = pinning_of(builder).prover_builder()
+        jax_ec._RNG.seed(MSM_RNG_SEED)
+        msm_witness(pb, cfg)
+        with _eager_stages():
+            proof = create_proof(params, pk, pb, seed=0)
+        assert verify_proof(params, pk.vk, proof)
+        out[key].update(proof_sha256=hashlib.sha256(proof).hexdigest(), proof_bytes=len(proof), seed=0)
+        stage(f"{key} create_proof")
+        del pk, pb, builder, params
+
+
 def main() -> None:
     if "--large" in sys.argv:
         freeze_ntt((19, 21), "ntt_digests_large.json")
@@ -957,6 +1192,10 @@ def main() -> None:
         return
     if "--mxu" in sys.argv:
         freeze_mxu()
+        return
+    if "--msm" in sys.argv:
+        rest = sys.argv[sys.argv.index("--msm") + 1 :]
+        freeze_msm(tuple(rest) or ("cases", "t_config", "full"))
         return
     if "--phases" in sys.argv:
         params9 = ParamsKZG.read(os.path.join(ROOT, "params", "kzg_bn254_9.srs"))

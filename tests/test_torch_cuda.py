@@ -524,6 +524,43 @@ def test_setup_on_the_card_reproduces_the_committed_srs(dev):
     assert ParamsKZG.setup(9, device=dev).to_halo2_bytes() == want
 
 
+def test_msm_t_config_proof_on_the_card(dev):
+    """The reference's MSM circuit at configs/bn254/msm_circuit.t.config
+    (k=13, batch 8, 181 + 30 advice columns): setup(13), keygen on the MOCK
+    builder, the pinned PROVER builder's witness and create_proof on the
+    card give the JAX package's SRS, vk and proof digests
+    (msm_digests.json); the proof verifies."""
+    import hashlib
+    import json
+    import os
+    import random
+
+    from halo2_lib_tpu_torch.backend.keygen import keygen
+    from halo2_lib_tpu_torch.backend.kzg import ParamsKZG
+    from halo2_lib_tpu_torch.backend.prover import create_proof
+    from halo2_lib_tpu_torch.backend.verifier import verify_proof
+    from halo2_lib_tpu_torch.ecc import ec as port_ec
+    from halo2_lib_tpu_torch.utils.pinning import pinning_of
+    from halo2_lib_tpu_torch.utils.testing import MSM_T_CONFIG, load_config, msm_circuit, msm_witness
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    with open(os.path.join(root, "tests", "data", "torch_goldens", "msm_digests.json")) as f:
+        gold = json.load(f)
+    want = gold["t_config"]
+    cfg = load_config(MSM_T_CONFIG)
+    params = ParamsKZG.setup(13, device=dev)
+    assert hashlib.sha256(params.to_halo2_bytes()).hexdigest() == want["srs_sha256"]
+    port_ec.DEFAULT_RNG.seed(gold["rng_seed"])
+    builder = msm_circuit(cfg)
+    pk = keygen(params, builder, device=dev)
+    assert hashlib.sha256(pk.vk.to_bytes()).hexdigest() == want["vk_sha256"]
+    pb = pinning_of(builder).prover_builder()
+    msm_witness(pb, cfg, None, random.Random(gold["rng_seed"]))
+    proof = create_proof(params, pk, pb, seed=0, device=dev)
+    assert hashlib.sha256(proof).hexdigest() == want["proof_sha256"]
+    assert verify_proof(params, pk.vk, proof)
+
+
 def test_pipelined_k9_proof_on_a_side_stream(dev):
     """prove_pipelined of the golden circuit on the card: its columns commit
     on the pipeline's second CUDA stream (commit_dbl_add at k=9) while the

@@ -86,3 +86,13 @@ def test_k8_prove_without_jax(tmp_path_factory):
     assert "error" not in run, run.get("error")
     assert run["verifies"] and not run["verifies_wrong_instances"]
     assert run["loaded"] == []
+
+
+def test_msm_and_prover_check_modules_are_walked():
+    """The in-circuit MSM gadgets, their thread manager and the prover with
+    its self-checks and switches are among the files the import check walks."""
+    walked = {os.path.relpath(f, PORT) for f in _port_files()}
+    for rel in ("ecc/ec.py", "ecc/pippenger.py", "ecc/fixed_base.py", "gates/threads.py",
+                "gates/circuit.py", "utils/pinning.py", "backend/pinned.py", "backend/keygen.py",
+                "backend/prover.py", "ops/ntt.py", "utils/device.py"):
+        assert rel in walked, rel
