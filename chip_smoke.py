@@ -1,11 +1,12 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port (halo2_lib_tpu_torch) once on one NVIDIA card.
 
-    python3 chip_smoke.py [--ptxas] [--mesh-only] [--msm-only]
+    python3 chip_smoke.py [--ptxas] [--mesh-only] [--msm-only] [--api-only]
 
 (--ptxas prints ptxas's report of every kernel; --mesh-only builds the
 kernels and runs phase 10 alone, over every visible card: the multi-card
-check; --msm-only builds them and runs phase 12 alone.) Phases, each
+check; --msm-only builds them, checks them (phase 2) and runs phase 12
+alone; --api-only the same with phase 13.) Phases, each
 printing its own lines; any failure raises
 and exits non-zero:
 
@@ -188,6 +189,30 @@ and exits non-zero:
              commit_dbl_add) equal to golden_k9.npz (the kernel rows'
              `launches_switches`: all these proofs). `--msm-only` builds the
              kernels, checks them (phase 2) and runs this phase alone.
+13. api    - (after 12, before 5) the JAX package's standalone device API
+             at the north star's sizes, the counts reset just before it and
+             read just after (the kernel rows' `launches_api`): an MSM over
+             2^20 distinct bases built on the card as s1[i % 256] + s2[(i >>
+             8) % 256] + s3[i >> 16] (ec_add at [16, 2^20], then batch_inv:
+             fermat_inv and the mont_mul prefix products) with random digits
+             (window 13, 20 windows, distinct=False: bucket_sums_fused's
+             complete add), through msm_device and DeviceCurve.msm (host
+             points and ints), equal to the host's reference (the digits
+             summed per group of points, 528 host scalar multiplications);
+             3 warm runs (seconds, median points/s) and the stage split
+             (CUDA events: lift, sort, bucket_sums_fused, bucket_weight,
+             msm_combine), each run held to the host; FourStepNTT at 2^20
+             bit-equal to NTT (the radix-2 stage loop of ntt_butterfly
+             launches), at 2^22 (plan [2, 128, 128, 128]) a round trip and
+             two outputs equal to host Horner values, median elems/s of 5
+             warm runs each; at k = 15 every new Domain method on the card
+             equal to the CPU's, eval_many_at to Horner,
+             divide_by_vanishing(Z_H q) to q, DeviceField.pow timed;
+             ParamsKZG.setup(15, seed) with its tau recomputed: commit ==
+             p(tau) G, commit_lagrange == sum v_i L_i(tau) G, both ==
+             commit_columns, commit_dev and commit_many; DeviceCurve.msm on
+             tests/test_ec_device.py's 64-point duplicate/identity case ==
+             the host. Every kernel of API_KERNELS must have launched.
 5. timing  - every kernel again, at the largest shapes the main path gave it
              (the ECDSA, k=15 and k=9 paths' shapes; g1_batch_mul at phase
              6's [16, 2^20] with setup(19)'s scalars, its plain version run
@@ -208,7 +233,12 @@ and exits non-zero:
              every kernel whose largest launch in the k=17 MSM run does more
              work than that shape again at the MSM run's shape (the rows'
              `at_msm_k17`: bucket_sums_fused at its windows x 2^17 points,
-             colntt at 2^19, ...).
+             colntt at 2^19, ...); and every kernel of API_KERNELS at its
+             largest launch of phase 13 (`at_api`: bucket_sums_fused at 20
+             windows x 2^20 points with the complete add, ec_add at [16,
+             2^20], ntt_butterfly at the 2^20 stage loop's halves, ...), and
+             colntt at the 2^22 plan's first level (`at_api_a2`: A = 2, B =
+             2^21).
 5b. MSM    - one whole MSM at the ECDSA advice commit's shape (21 columns x
              2^15 points, window 10, distinct bases), in turns old, new, new,
              old: "old" accumulates the buckets by the bucket_scan composition
@@ -315,6 +345,11 @@ FUSES = {
 # directly above that: phase 11)
 COMPARE_SHAPES = {"ntt_small": ((12, 16, 2048), True, 0),
                   "dft_stage": ((12, 16, 64, 32), 64, True, 64 * 32)}
+# the kernels the API phase (13) must launch: the general MSM over 2^20
+# bases, the bases' build and normalisation, the NTT at 2^20 and 2^22, the
+# Domain API
+API_KERNELS = ("bucket_sums_fused", "bucket_weight", "msm_combine", "ec_add", "fermat_inv",
+               "mont_mul", "field_add", "field_sub", "colntt", "ntt_butterfly")
 # 32-bit operations of one batch of the inversion (csrc/fermat_kernel.cu):
 # the 2x2 matrix on (d, e), 6 multiply-adds a limb with the multiple of p,
 # and on (f, g), 4 a limb, over 9 limbs, each a 32 x 32 -> 64-bit product
@@ -906,6 +941,51 @@ def mesh_phase(torch, np, dev, keys=None):
     return launches, largest
 
 
+def host_msm(points, scalars, q: int):
+    """sum_i s_i P_i over bn254 G1 with exact host ints: one chain of
+    Jacobian doublings shared by every term (Straus), a mixed add for each
+    set bit, one inversion at the end; affine (x, y) or None."""
+
+    def dbl(P):
+        X, Y, Z = P
+        if Z == 0 or Y == 0:
+            return (1, 1, 0)
+        A, B = X * X % q, Y * Y % q
+        C = B * B % q
+        D = 2 * ((X + B) * (X + B) - A - C) % q
+        E = 3 * A % q
+        X3 = (E * E - 2 * D) % q
+        return (X3, (E * (D - X3) - 8 * C) % q, 2 * Y * Z % q)
+
+    def madd(P, x2, y2):
+        X, Y, Z = P
+        if Z == 0:
+            return (x2, y2, 1)
+        ZZ = Z * Z % q
+        H = (x2 * ZZ - X) % q
+        r = (y2 * ZZ * Z - Y) % q
+        if H == 0:
+            return dbl(P) if r == 0 else (1, 1, 0)
+        HH = H * H % q
+        HHH, V = H * HH % q, X * HH % q
+        X3 = (r * r - HHH - 2 * V) % q
+        return (X3, (r * (V - X3) - Y * HHH) % q, Z * H % q)
+
+    terms = [(pt, s) for pt, s in zip(points, scalars) if pt is not None and s]
+    acc = (1, 1, 0)
+    for bit in range(max((s.bit_length() for _, s in terms), default=0) - 1, -1, -1):
+        acc = dbl(acc)
+        for (x2, y2), s in terms:
+            if s >> bit & 1:
+                acc = madd(acc, x2, y2)
+    X, Y, Z = acc
+    if Z == 0:
+        return None
+    zi = pow(Z, -1, q)
+    zi2 = zi * zi % q
+    return (X * zi2 % q, Y * zi2 * zi % q)
+
+
 def free_port() -> int:
     import socket
 
@@ -925,7 +1005,7 @@ def main() -> None:
     import numpy as np
 
     from halo2_lib_tpu_torch.backend.keygen import keygen
-    from halo2_lib_tpu_torch.backend.poly import _domain
+    from halo2_lib_tpu_torch.backend.poly import Domain, _domain
     from halo2_lib_tpu_torch.backend.kzg import (
         ParamsKZG, _affine_mont, _lagrange_scalars, _pack_affine, _tau_powers,
         commit_double_and_add, gen_srs, host_points, window_digits,
@@ -933,8 +1013,9 @@ def main() -> None:
     from halo2_lib_tpu_torch.backend.prover import create_proof
     from halo2_lib_tpu_torch.backend.verifier import verify_proof
     from halo2_lib_tpu_torch.ops import cuda_field as cf
+    from halo2_lib_tpu_torch.ops import ec_device as ec_mod
     from halo2_lib_tpu_torch.ops.ec_device import (
-        DeviceCurve, _scan_lanes, msm_many_device, msm_window_bits, weight_lanes,
+        DeviceCurve, _scan_lanes, msm_device, msm_many_device, msm_window_bits, weight_lanes,
     )
     from halo2_lib_tpu_torch.ops.limbs import DeviceField, ints_to_limbs_T, limbs_to_ints
     from halo2_lib_tpu_torch.ops.ntt import NTT, CosetNTT, FourStepNTT, new_ntt, ntt_stages
@@ -1310,6 +1391,10 @@ def main() -> None:
             fn()
         return time_ms(graph.replay, reps)
 
+    def host_ints(t) -> list[int]:
+        """[..., 16, B] limbs -> the elements as ints, lane fastest."""
+        return limbs_to_ints(t.movedim(-2, -1).reshape(-1, 16).cpu().numpy())
+
     def stage_line(d: dict) -> str:
         return json.dumps({k: round(v, 4) for k, v in d.items()})
 
@@ -1557,6 +1642,304 @@ def main() -> None:
     if "--msm-only" in sys.argv:
         msm_phase()
         log(f"[total] chip_smoke.py --msm-only {time.time() - t_start:.1f}s")
+        log(nvidia_smi())
+        return
+
+    # --- 13. api: the standalone device API at the north star's sizes -----------------------
+    def msm_stages(dc, Pb, digits, c: int):
+        """msm_device's steps one by one between CUDA-event marks (sort,
+        bucket_sums_fused, bucket_weight, msm_combine; the affine lift's
+        select and the bases' packing as "lift"); returns the Jacobian
+        point and the stage milliseconds."""
+        st = Stages(torch)
+        W, n = digits.shape
+        inf = dc.df.is_zero(Pb[2])[None, :]
+        A = (torch.where(inf, 0, Pb[0]), torch.where(inf, 0, Pb[1]))
+        bases = cf.pack_bases(*A)
+        st.mark("lift")
+        d_sorted, order = torch.sort(digits.to(torch.int32), dim=1, stable=True)
+        order = order.to(torch.int32)
+        st.mark("sort")
+        nb = (1 << c) - 1
+        CL = _scan_lanes(n, dev)
+        group = max(1, ec_mod._MSM_GROUP_BYTES // (8 * n + 3 * 64 * (nb + CL)))
+        parts = [cf.bucket_sums_fused(bases, order[i : i + group], d_sorted[i : i + group], CL,
+                                      nb, False) for i in range(0, W, group)]
+        S = tuple(torch.cat([q[j] for q in parts], dim=0) for j in range(3))
+        st.mark("bucket_sums_fused")
+        T = cf.bucket_weight(S, weight_lanes(nb, n, dev))
+        st.mark("bucket_weight")
+        out = cf.msm_combine(T, W, c)
+        st.mark("msm_combine")
+        return tuple(t[:, :1] for t in out), st.ms(), len(parts)
+
+    def api_phase():
+        """Phase 13: the JAX package's standalone API on the card at the north
+        star's sizes: an MSM over 2^20 distinct bases (msm_device and
+        DeviceCurve.msm, distinct=False), the NTT at 2^20 and 2^22, and the
+        Domain / ParamsKZG / DeviceField API at k = 15. Returns its
+        launches and largest launches."""
+        t13 = time.time()
+        q, r = FQ_BN254.p, FR_BN254.p
+        dc13 = DeviceCurve(DeviceField(FQ_BN254), BN254_G1)
+        gen13 = torch.Generator(device="cuda")
+        gen13.manual_seed(13)
+        reset_counts()
+
+        # -- the MSM over 2^20 distinct bases, built on the card (bench.py:222-236)
+        log_m = 20
+        n = 1 << log_m
+        rng13 = random.Random(13)
+        s1 = [BN254_G1.random_point(rng13) for _ in range(256)]
+        s2 = [BN254_G1.random_point(rng13) for _ in range(256)]
+        s3 = [BN254_G1.random_point(rng13) for _ in range(n >> 16)]
+        t = time.time()
+        idx = torch.arange(n, device=dev)
+        g1, g2, g3 = (tuple(t_[:, ix] for t_ in dc13.pack_points(s, dev))
+                      for s, ix in ((s1, idx % 256), (s2, (idx >> 8) % 256), (s3, idx >> 16)))
+        X, Y, Z = dc13.add(dc13.add(g1, g2), g3)  # ec_add at [16, 2^20], twice
+        zinv = dc13.df.batch_inv(Z)  # fermat_inv and the mont_mul prefix products
+        zi2 = dc13.df.mont_mul(zinv, zinv)
+        Pb = (dc13.df.mont_mul(X, zi2), dc13.df.mont_mul(Y, dc13.df.mont_mul(zi2, zinv)),
+              dc13.df.one_mont((n,), dev).contiguous())
+        del g1, g2, g3, X, Y, Z, zinv, zi2
+        torch.cuda.synchronize()
+        t_bases = time.time() - t
+        c = msm_window_bits(n, dev)
+        W = -(-254 // c)
+        digit_sets = [torch.randint(0, 1 << c, (W, n), generator=gen13, device=dev,
+                                    dtype=torch.int32) for _ in range(4)]
+
+        def reference(d):
+            """sum_i a_i P_i with a_i = sum_w d[w, i] 2^(c w): the digits
+            summed per group of i on the card (exact int64), then 528 host
+            scalar multiplications of the three point sets."""
+            d64 = d.to(torch.int64)
+            sums = [d64.reshape(W, n // 256, 256).sum(1),
+                    d64.reshape(W, n >> 16, 256, 256).sum((1, 3)),
+                    d64.reshape(W, n >> 16, 1 << 16).sum(2)]
+            scal = []
+            for g in sums:
+                g = g.cpu().tolist()
+                scal += [sum(g[w][j] << (c * w) for w in range(W)) % r for j in range(len(g[0]))]
+            return host_msm(s1 + s2 + s3, scal, q)
+
+        t = time.time()
+        want0 = reference(digit_sets[0])
+        t_ref = time.time() - t
+        got0 = dc13.unpack_points(msm_device(dc13, Pb, digit_sets[0], c))[0]
+        if got0 != want0:
+            raise AssertionError("[api] msm_device over 2^20 distinct bases differs from the "
+                                 "host's three-level reference")
+        # DeviceCurve.msm from host points and ints: the same bases and scalars
+        t = time.time()
+        hx, hy = (dc13.df.unpack(t_) for t_ in Pb[:2])
+        host_pts = list(zip(hx, hy))
+        bits = ((digit_sets[0].T.cpu()[:, :, None] >> torch.arange(c)) & 1).to(torch.uint8)
+        raw = np.packbits(bits.reshape(n, W * c).numpy(), axis=1, bitorder="little")
+        scalars = [int.from_bytes(row.tobytes(), "little") for row in raw]
+        del bits, raw
+        t_host = time.time() - t
+        t = time.time()
+        got_api = dc13.unpack_points(dc13.msm(host_pts, scalars, c, device=dev))[0]
+        t_api = time.time() - t
+        if got_api != want0:
+            raise AssertionError("[api] DeviceCurve.msm over 2^20 host points differs from the "
+                                 "host's reference")
+        del host_pts, scalars, hx, hy
+        log(f"[api] MSM 2^{log_m}: {n} distinct bases s1[i % 256] + s2[(i >> 8) % 256] + "
+            f"s3[i >> 16] built on the card in {t_bases:.3f}s (ec_add x2 at [16, 2^20], "
+            f"batch_inv); window {c}, {W} windows of random digits, distinct=False; msm_device "
+            f"== DeviceCurve.msm == the host's reference (528 scalar multiplications, "
+            f"{t_ref:.3f}s); DeviceCurve.msm from host points and ints {t_api:.3f}s (host "
+            f"conversion {t_host:.3f}s)")
+        runs = []
+        for d in digit_sets[1:]:
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = msm_device(dc13, Pb, d, c)
+            torch.cuda.synchronize()
+            runs.append(time.perf_counter() - t)
+            if dc13.unpack_points(out)[0] != reference(d):
+                raise AssertionError("[api] a timed MSM differs from the host's reference")
+        split, stages, groups = msm_stages(dc13, Pb, digit_sets[1], c)
+        if any(not torch.equal(a, b) for a, b in
+               zip(split, msm_device(dc13, Pb, digit_sets[1], c))):
+            raise AssertionError("[api] the MSM run step by step differs from msm_device")
+        med = sorted(runs)[1]
+        log(f"[api] MSM 2^{log_m} (msm_device, 3 warm runs, host clock): "
+            + ", ".join(f"{v:.6f}" for v in runs) + f" s; median {n / med:.1f} points/s; "
+            f"stages (ms, CUDA events, {groups} bucket_sums_fused group(s)) " + stage_line(stages))
+        result = {"msm": {"n": n, "window_bits": c, "windows": W, "run_s": runs,
+                          "points_per_s": n / med, "stages_ms": stages,
+                          "bucket_sums_groups": groups}}
+        del Pb, digit_sets
+
+        # -- the NTT at 2^20 (four-step against the radix-2 stage loop) and 2^22
+        ntt_res = {}
+        for log_n in (20, 22):
+            nn = 1 << log_n
+            four = new_ntt(fr_df, log_n, dev)
+            if not isinstance(four, FourStepNTT):
+                raise AssertionError(f"[api] new_ntt at 2^{log_n} is {type(four).__name__}")
+            x = rand_limbs(gen13, (1, 16, nn), torch, r)
+            y = four.forward(x)
+            if log_n == 20:
+                radix2 = NTT(fr_df, log_n, dev)
+                y2 = radix2.forward(x)
+                if not torch.equal(y, y2):
+                    raise AssertionError("[api] FourStepNTT at 2^20 differs from the radix-2 "
+                                         "stage loop")
+                del y2
+                check = "bit-equal to NTT.forward (the radix-2 stage loop, ntt_butterfly)"
+            else:
+                if not torch.equal(four.inverse(y), x):
+                    raise AssertionError("[api] the 2^22 NTT does not round-trip")
+                # the raw limbs are the values times R on both sides, so the
+                # host evaluates the raw ints at w^j
+                xs = host_ints(x)
+                w = FR_BN254.nth_root_of_unity(log_n)
+                for j in (1, nn - 3):
+                    wj, acc = pow(w, j, r), 0
+                    for v in reversed(xs):
+                        acc = (acc * wj + v) % r
+                    if acc != host_ints(y[..., j : j + 1])[0]:
+                        raise AssertionError(f"[api] the 2^22 NTT's output {j} differs from "
+                                             f"the host's Horner value")
+                del xs
+                check = "inverse(forward(x)) == x; outputs 1 and n - 3 == host Horner"
+            times = {}
+            for label, fn in (("FourStepNTT", four.forward),) + (
+                    (("NTT (stage loop)", radix2.forward),) if log_n == 20 else ()):
+                fn(x)
+                ts = []
+                for _ in range(5):
+                    torch.cuda.synchronize()
+                    t = time.perf_counter()
+                    fn(x)
+                    torch.cuda.synchronize()
+                    ts.append(time.perf_counter() - t)
+                times[label] = ts
+            ntt_res[log_n] = {"plan": four.factors, "run_s": times,
+                              "elems_per_s": {k: nn / sorted(v)[2] for k, v in times.items()}}
+            log(f"[api] NTT 2^{log_n} (plan {four.factors}): {check}; 5 warm runs (s, host "
+                f"clock) " + json.dumps({k: [round(v, 6) for v in ts] for k, ts in times.items()})
+                + "; median elems/s " + json.dumps({k: round(v, 1) for k, v in
+                                                   ntt_res[log_n]["elems_per_s"].items()}))
+            del four, x, y
+            if log_n == 20:
+                del radix2
+        result["ntt"] = ntt_res
+        torch.cuda.empty_cache()
+
+        # -- the API at the ECDSA domain, k = 15: the card against the CPU and the host
+        t = time.time()
+        k = 15
+        dom = Domain(k)
+        hrng = np.random.default_rng(15)
+        cvals = [int(v) % r for v in hrng.integers(0, 1 << 62, size=dom.n, dtype=np.int64)]
+        cvals = [(v << 190) % r for v in cvals]
+        xpt = int(hrng.integers(2, 1 << 62))
+        outs = {}
+        for d in (dev, torch.device("cpu")):
+            C = dom.pack(cvals, d)
+            ext = dom.coeff_to_extended(C)
+            outs[d.type] = {
+                "lagrange_to_coeff": dom.lagrange_to_coeff(C),
+                "coeff_to_lagrange": dom.coeff_to_lagrange(C),
+                "coeff_to_extended": ext, "extended_to_coeff": dom.extended_to_coeff(ext),
+                "divide_by_vanishing": dom.divide_by_vanishing(ext),
+                "mul": dom.mul(C, C), "add": dom.add(C, C), "sub": dom.sub(C, dom.const_h(3, d)),
+                "rotate_ext": dom.rotate_ext(ext, 1), "const_ext": dom.const_ext(5, d),
+                "prefix_prod": dom.prefix_prod(C), "pows_dev": dom.pows_dev(xpt, 1000, d),
+                "eval_many_at": dom.eval_many_at(C[None], xpt),
+                "pow": dom.df.pow(C[:, :64], r - 2),
+            }
+        bad = [name for name, v in outs["cuda"].items()
+               if (v != outs["cpu"][name] if isinstance(v, list)
+                   else not torch.equal(v.cpu(), outs["cpu"][name]))]
+        if bad:
+            raise AssertionError(f"[api] Domain at k=15: {bad} differ on the card from the CPU")
+        torch.cuda.synchronize()
+        t_p = time.time()
+        dom.df.pow(dom.pack(cvals[:64], dev), r - 2)
+        torch.cuda.synchronize()
+        t_pow = time.time() - t_p
+        if outs["cuda"]["eval_many_at"] != [dom.eval_coeffs_host(cvals, xpt)]:
+            raise AssertionError("[api] eval_many_at differs from the host's Horner value")
+        # Z_H * q divided by Z_H on the extended coset is q
+        qv = cvals[::-1]  # Z_H q = X^n q - q: -q, then q from X^n
+        zhq = [(-v) % r for v in qv] + qv + [0] * (dom.n_ext - 2 * len(qv))
+        zq = dom.pack(zhq, dev)
+        back = dom.extended_to_coeff(dom.divide_by_vanishing(dom.coeff_to_extended(zq)))
+        if dom.unpack(back) != qv + [0] * (dom.n_ext - len(qv)):
+            raise AssertionError("[api] divide_by_vanishing(Z_H q) is not q")
+        del outs, zq, back
+        t_dom = time.time() - t
+        # commit / commit_lagrange against p(tau) G and sum v_i L_i(tau) G
+        t = time.time()
+        seed = 1315
+        params = ParamsKZG.setup(k, seed=seed, device=dev)
+        tau = random.Random(("kzg-srs", seed, k).__repr__()).randrange(1, r)
+        coeffs = cvals[: dom.n - 5]
+        t_c = time.time()
+        cm = params.commit(coeffs)
+        t_commit = time.time() - t_c
+        ptau = dom.eval_coeffs_host(coeffs, tau)
+        lag = _lagrange_scalars(tau, k)
+        evals = cvals[::-1]
+        t_c = time.time()
+        cl = params.commit_lagrange(evals)
+        t_commit_l = time.time() - t_c
+        ltau = sum(v * w for v, w in zip(evals, lag)) % r
+        if cm != BN254_G1.mul(BN254_G1.g, ptau) or cl != BN254_G1.mul(BN254_G1.g, ltau):
+            raise AssertionError("[api] commit / commit_lagrange at k=15 differ from p(tau) G / "
+                                 "sum v_i L_i(tau) G")
+        cols = torch.stack([dom.pack(coeffs + [0] * 5, dev), dom.pack(evals, dev)])
+        via_cols = (host_points(params.commit_columns(fr_df, cols[:1], params.affine_bases(dev)))
+                    + host_points(params.commit_columns(fr_df, cols[1:],
+                                                        params.affine_lagrange_bases(dev))))
+        dev_c = params.commit_dev(cols[0], fr_df)
+        many = params.commit_many([coeffs, evals], window_bits=8)
+        if via_cols != [cm, cl] or dev_c != cm or many[0] != cm:
+            raise AssertionError("[api] commit_columns / commit_dev / commit_many at k=15 differ "
+                                 "from commit and commit_lagrange")
+        del params, cols
+        # the 64-point case of tests/test_ec_device.py:58-75 on the card
+        crng = random.Random(64)
+        pts = [BN254_G1.random_point(crng) for _ in range(64)]
+        sc = [BN254_G1.random_scalar(crng) for _ in range(64)]
+        pts[3] = None
+        sc[5] = 0
+        pts[10] = pts[11] = pts[12]
+        sc[10] = sc[11] = sc[12]
+        pts[20] = pts[21]
+        sc[30], sc[31] = 1, 255
+        if dc13.unpack_points(dc13.msm(pts, sc, 8, device=dev))[0] != host_msm(pts, sc, q):
+            raise AssertionError("[api] DeviceCurve.msm on the duplicate/identity case differs "
+                                 "from the host")
+        t_kzg = time.time() - t
+        log(f"[api] k=15 Domain: 14 methods on the card == on the CPU, eval_many_at == Horner, "
+            f"divide_by_vanishing(Z_H q) == q ({t_dom:.3f}s); DeviceField.pow(x, r - 2) at 64 lanes "
+            f"{t_pow:.4f}s; setup(15, seed) commit == p(tau) G "
+            f"({t_commit:.3f}s), commit_lagrange == sum v_i L_i(tau) G ({t_commit_l:.3f}s), both "
+            f"== commit_columns, commit_dev, commit_many; DeviceCurve.msm on the 64-point "
+            f"duplicate/identity case == host ({t_kzg:.3f}s)")
+        torch.cuda.synchronize()
+        launches, largest = dict(cf.LAUNCHES), dict(cf.LARGEST)
+        missing = [name for name in API_KERNELS if not launches[name]]
+        if missing:
+            raise AssertionError(f"[api] not launched in phase 13: {missing}; {launches}")
+        log("[api] launches: " + json.dumps(launches))
+        log("[api] largest launches: " + json.dumps({k_: [v[0], str(v[1])] for k_, v in
+                                                      largest.items()}))
+        log(json.dumps({"api": result}))
+        log(f"[api] phase 13 {time.time() - t13:.2f}s")
+        return launches, largest
+
+    if "--api-only" in sys.argv:
+        api_phase()
+        log(f"[total] chip_smoke.py --api-only {time.time() - t_start:.1f}s")
         log(nvidia_smi())
         return
 
@@ -2343,6 +2726,9 @@ def main() -> None:
     # --- 12. msm: the MSM circuit at k=13 and k=17, the switches at k=12 --------------------
     launches_msm13, launches_msm17, launches_sw, largest_msm = msm_phase()
 
+    # --- 13. api: the MSM at 2^20, the NTT at 2^20 and 2^22, the API at k=15 ------------------
+    launches_api, largest_api = api_phase()
+
     # --- 5. every kernel at its main-path shapes: check and time ----------------------------
     def numel(shape) -> int:
         out = 1
@@ -2501,10 +2887,6 @@ def main() -> None:
         (_, CW), W, c = spec
         return 7 * W * c + 16 * W
 
-    def host_ints(t) -> list[int]:
-        """[..., 16, B] limbs -> the elements as ints, lane fastest."""
-        return limbs_to_ints(t.movedim(-2, -1).reshape(-1, 16).cpu().numpy())
-
     rows = []
     work = {}  # data-dependent work of this run's inputs, for the bounds
 
@@ -2588,12 +2970,12 @@ def main() -> None:
             # the main path's launches: the k=9, the two phase-3b k=9
             # circuits', the k=15 slice, the ECDSA, the pairing, the
             # pipelined ECDSA (phase 7), the device mock, the gadget runs,
-            # the mesh proofs (phase 10), the MSM circuit at k=13 and k=17
-            # and the k=12 switch proofs (phase 12)
+            # the mesh proofs (phase 10), the MSM circuit at k=13 and k=17,
+            # the k=12 switch proofs (phase 12) and the API phase (13)
             "launches": (launches9[name] + launches_3b[name] + launches15[name] + launches_e[name]
                          + launches_p[name] + launches_b[name] + launches_m[name]
                          + launches_g[name] + launches_mesh[name] + launches_msm13[name]
-                         + launches_msm17[name] + launches_sw[name]),
+                         + launches_msm17[name] + launches_sw[name] + launches_api[name]),
             "launches_k9": launches9[name],
             "launches_k9_phases": launches_3b[name],
             "launches_k15": launches15[name],
@@ -2606,6 +2988,7 @@ def main() -> None:
             "launches_msm_k13": launches_msm13[name],
             "launches_msm_k17": launches_msm17[name],
             "launches_switches": launches_sw[name],
+            "launches_api": launches_api[name],
             "max_abs_err": err,
             "ms": round(ms, 6),
             "plain_ms": round(plain_ms, 6),
@@ -2613,6 +2996,7 @@ def main() -> None:
             "bound_by": by,
             "library_ms": None if library_ms is None else round(library_ms, 6),
             "shape": [list(s) if isinstance(s, tuple) else s for s in spec],
+            "shape_spec": spec,
         }
         if name in FUSES:
             row["fuses"] = FUSES[name]
@@ -2708,21 +3092,33 @@ def main() -> None:
                 f"kernel == plain")
 
     # every kernel whose largest launch in the k=17 MSM run (phase 12) does
-    # more work than the shape timed above: checked, timed (kernel 3 or 10
-    # launches, plain version once) and bounded at that shape too
+    # more work than the shape timed above, and every kernel at its largest
+    # launch of the API phase (13: the MSM over 2^20 distinct bases, the NTT
+    # at 2^20 and 2^22) where that shape is not the one timed above: checked,
+    # timed (kernel 3 or 10 launches, plain version once) and bounded there
+    todo = []
     for row in rows:
         name = row["name"]
-        if name in COMPARE_SHAPES or name not in largest_msm:
+        if name in COMPARE_SHAPES:
             continue
         base = (largest_e.get(name) or largest15.get(name) or largest9.get(name)
                 or largest_p.get(name) or largest_mesh.get(name) or OFF_PATH_SHAPES[name])
-        work_m, spec = largest_msm[name]
-        if work_m <= base[0]:
-            continue
+        if name in largest_msm and largest_msm[name][0] > base[0]:
+            todo.append((row, "at_msm_k17", "the k=17 MSM run's", largest_msm[name][1]))
+        if (name in API_KERNELS and name in largest_api
+                and largest_api[name][1] != row["shape_spec"]):
+            todo.append((row, "at_api", "the API phase's", largest_api[name][1]))
+        if name == "colntt":
+            # the first level of the 2^22 plan [2, 128, 128, 128], a shape no
+            # other path launches
+            todo.append((row, "at_api_a2", "the 2^22 plan's first level's",
+                         ((1, 2, 16, 1 << 21), True)))
+    for row, key, whose, spec in todo:
+        name = row["name"]
         if name in ("mont_mul", "field_add", "field_sub") and numel(spec[0]) > 1 << 29:
             # the quotient's whole stacks: the plain version's int64
             # temporaries at that size would pass the card's memory
-            log(f"[timing] {name}: the k=17 MSM run's largest launch {spec} (more than 2 GiB "
+            log(f"[timing] {name}: {whose} largest launch {spec} (more than 2 GiB "
                 f"an operand) not timed; a bytes-bound kernel, its time scales from the row's")
             continue
         fid, args = path_inputs(name, spec)
@@ -2735,8 +3131,8 @@ def main() -> None:
         torch.cuda.synchronize()
         err = max_err(got, want)
         if err:
-            raise AssertionError(f"{name} at the k=17 MSM run's shape {spec} disagrees with its "
-                                 f"plain version")
+            raise AssertionError(f"{name} at {whose} shape {spec} disagrees with its plain "
+                                 f"version")
         del got, want
         if name == "fermat_inv":
             steps = [divsteps_needed(x, P[fid]) for x in host_ints(args[0])]
@@ -2744,14 +3140,16 @@ def main() -> None:
         reps = 3 if name in ("bucket_scan", "bucket_sums_fused") else 10
         ms = time_ms(lambda: run(name, fid, args, plain=False), reps)
         bms, by = bound(name, spec)
-        row["at_msm_k17"] = {
+        row[key] = {
             "shape": [list(x) if isinstance(x, tuple) else x for x in spec],
             "ms": round(ms, 6), "plain_ms": round(e0.elapsed_time(e1), 6),
             "bound_ms": round(bms, 6), "bound_by": by, "max_abs_err": err,
         }
-        log(f"[timing] {name} at the k=17 MSM run's largest shape {spec}: {ms:.4f} ms (plain "
-            f"{row['at_msm_k17']['plain_ms']:.3f} ms, bound {bms:.4f} ms by {by}), kernel == plain")
+        log(f"[timing] {name} at {whose} largest shape {spec}: {ms:.4f} ms (plain "
+            f"{row[key]['plain_ms']:.3f} ms, bound {bms:.4f} ms by {by}), kernel == plain")
         del args
+    for row in rows:
+        del row["shape_spec"]
 
     # --- 5b. one whole MSM at the ECDSA advice commit's shape: old vs fused buckets ---------
     def old_tail(dc, S, W: int, c: int, CL2: int):

@@ -27,7 +27,9 @@ m: up to ``COMMIT_SIMPLE_MAX`` points an MSB-first double-and-add over the
 the small branch of the JAX ``_commit_chunk_jit``; every commit at k <= 10),
 above it a Pippenger MSM (ops/ec_device.py, ``distinct=True`` as SRS bases
 allow). Either way one call commits all the columns a transcript phase
-writes.
+writes. The JAX package's standalone commitments (``commit``,
+``commit_lagrange``, ``commit_dev``, ``commit_many``,
+``commit_many_inside``) are Pippenger MSMs on the cached device bases.
 """
 
 from __future__ import annotations
@@ -40,7 +42,7 @@ import numpy as np
 import torch
 
 from ..ops import cuda_field as cf
-from ..ops.ec_device import DeviceCurve, msm_many_device, msm_window_bits
+from ..ops.ec_device import DeviceCurve, msm_device, msm_many_device, msm_window_bits
 from ..ops.limbs import N_LIMBS, DeviceField, ints_to_limbs, ints_to_limbs_T, limbs_to_ints, to_device
 from ..utils.curves import BN254_G1, BN254_G2, BN254_G2_B, FQ2_BN254
 from ..utils.device import resolve_device, stage_end
@@ -426,6 +428,24 @@ class ParamsKZG:
         """(Ax, Ay) Lagrange bases for msm_many_device."""
         return self._affine(True, device)
 
+    def _packed(self, lagrange: bool, device) -> tuple:
+        """(X, Y, Z) Jacobian affine lift of a basis for msm_device: the
+        cached affine bases with Z = R, or Z = 0 at a (0, 0) sentinel."""
+        device = resolve_device(device if device is not None else self.device)
+        key = ("jacobian", lagrange, str(device))
+        b = self._bases.get(key)
+        if b is None:
+            Ax, Ay = self._affine(lagrange, device)
+            dc = self.device_curve()
+            inf = (dc.df.is_zero(Ax) & dc.df.is_zero(Ay))[None, :]
+            one = dc.df.one_mont_like(Ax)
+            b = self._bases[key] = (Ax, Ay, torch.where(inf, 0, one))
+        return b
+
+    def packed_bases(self, device=None):
+        """(X, Y, Z) monomial bases for msm_device (Z in {0, R})."""
+        return self._packed(False, device)
+
     def affine_slice(self, lagrange: bool, start: int, stop: int, device) -> tuple:
         """(Ax, Ay) of bases [start, stop), uploaded to `device` (not cached:
         a mesh shard's slice)."""
@@ -458,6 +478,52 @@ class ParamsKZG:
                 digits = torch.nn.functional.pad(digits, (0, self.n - m))
             X, Y, Z = msm_many_device(dc, bases, digits, window_bits, True)
         return _pack_affine(dc.df, X, Y, Z)
+
+    def commit_many_inside(self, fr_df: DeviceField, vals_mont, lagrange: bool,
+                           window_bits: int | None = None, bases=None):
+        """[C, 16, m] Montgomery column values (evaluations on H if
+        `lagrange`, else coefficients), m <= n -> Jacobian [16, C]
+        commitments: one Pippenger MSM on the tensor's device with the
+        no-doubling mixed add (SRS bases are distinct); `bases` (Ax, Ay)
+        overrides the cached ones."""
+        device = vals_mont.device
+        window_bits = window_bits or msm_window_bits(self.n, device)
+        digits = window_digits(fr_df, vals_mont, window_bits)  # [C, W, m]
+        if digits.shape[-1] < self.n:
+            digits = torch.nn.functional.pad(digits, (0, self.n - digits.shape[-1]))
+        A = bases if bases is not None else self._affine(lagrange, device)
+        return msm_many_device(self.device_curve(), A, digits, window_bits, True)
+
+    def _commit_host(self, values: list[int], lagrange: bool, window_bits, device):
+        if len(values) > self.n:
+            raise ValueError(f"{len(values)} values for an SRS of {self.n} points")
+        device = resolve_device(device if device is not None else self.device)
+        window_bits = window_bits or msm_window_bits(self.n, device)
+        dc = self.device_curve()
+        values = list(values) + [0] * (self.n - len(values))
+        digits = dc.pack_scalars(values, window_bits, device)
+        out = msm_device(dc, self._packed(lagrange, device), digits, window_bits)
+        return dc.unpack_points(out)[0]
+
+    def commit(self, coeffs: list[int], window_bits: int | None = None, device=None):
+        """Commit to a polynomial in coefficient form: MSM(g, coeffs) -> host
+        affine point (None for the identity), through msm_device on `device`
+        (the params' device unless the caller asks for another)."""
+        return self._commit_host(coeffs, False, window_bits, device)
+
+    def commit_lagrange(self, evals: list[int], window_bits: int | None = None, device=None):
+        """Commit to a polynomial given by its values on H (no inverse NTT):
+        MSM(g_lagrange, evals) -> host affine point."""
+        return self._commit_host(evals, True, window_bits, device)
+
+    def commit_dev(self, coeffs_dev, fr_df: DeviceField, window_bits: int | None = None):
+        """Commit to a Montgomery coefficient tensor [16, m], m <= n, on its
+        device -> host affine point."""
+        out = self.commit_many_inside(fr_df, coeffs_dev[None], False, window_bits)
+        return self.device_curve().unpack_points(out)[0]
+
+    def commit_many(self, polys: list[list[int]], window_bits: int = 8, device=None) -> list:
+        return [self.commit(p, window_bits, device) for p in polys]
 
 
 @torch.inference_mode()

@@ -1,1 +1,3 @@
+from .limbs import DeviceField
 
+__all__ = ["DeviceField"]

@@ -18,7 +18,9 @@ The MSM is Pippenger with sort + segmented-scan bucket accumulation:
   * the windows combine MSB first by repeated doubling (one ``msm_combine``
     launch).
 The other ``lax.scan``/``fori_loop`` loops of the JAX package are Python
-loops of kernel launches here.
+loops of kernel launches here. ``msm_device`` and ``DeviceCurve.msm`` are
+the JAX package's general MSM of one scalar column over an affine lift
+(bases that may repeat: the complete mixed add).
 """
 
 from __future__ import annotations
@@ -27,6 +29,7 @@ import numpy as np
 import torch
 
 from ..utils.curves import ShortWeierstrass
+from ..utils.device import resolve_device
 from . import cuda_field as cf
 from .limbs import DeviceField, ints_to_limbs_T, to_device
 
@@ -60,9 +63,11 @@ class DeviceCurve:
         `distinct=True` drops the doubling branch (sound for SRS bases)."""
         return cf.ec_madd(P1, A2, distinct)
 
-    # --- packing ----------------------------------------------------------------
-    def pack_points(self, points, device="cpu"):
-        """Affine host points ((x, y) or None) -> Jacobian limb-major [16, n]."""
+    # --- packing (on `device`: the CUDA card unless the caller asks for another) ---
+    def pack_points(self, points, device=None):
+        """Affine host points ((x, y) or None) -> Jacobian limb-major [16, n],
+        the affine lift: Z = R (the Montgomery one), or 0 for the identity."""
+        device = resolve_device(device)
         p = self.df.p_int
         R = self.df.R
         xs = [0 if pt is None else (pt[0] * R) % p for pt in points]
@@ -84,17 +89,18 @@ class DeviceCurve:
             out.append((F.mul(x, zi2), F.mul(y, F.mul(zi2, zinv))))
         return out
 
-    def pack_points_affine(self, points, device="cpu"):
+    def pack_points_affine(self, points, device=None):
         """Host affine points -> (Ax, Ay) limb-major [16, n] Montgomery,
         identity as the (0, 0) sentinel; the conversion to Montgomery form
         runs as one mont_mul launch per coordinate."""
+        device = resolve_device(device)
         xs = [0 if pt is None else pt[0] for pt in points]
         ys = [0 if pt is None else pt[1] for pt in points]
         return tuple(
             self.df._to_mont(to_device(ints_to_limbs_T(v), device)) for v in (xs, ys)
         )
 
-    def identity(self, shape=(), device="cpu") -> tuple:
+    def identity(self, shape=(), device=None) -> tuple:
         z = self.df.zero(shape, device)
         return (z, z, z)
 
@@ -117,6 +123,18 @@ class DeviceCurve:
                 X, Y, Z = s
             n = X.shape[-1]
         return (X, Y, Z)
+
+    # --- MSM ----------------------------------------------------------------------
+    def pack_scalars(self, scalars: list[int], window_bits: int, device=None) -> torch.Tensor:
+        """Scalars -> int32[num_windows, n] window digits on `device`."""
+        return pack_scalars(self, scalars, window_bits, device)
+
+    def msm(self, points, scalars: list[int], window_bits: int = 8, device=None):
+        """Pippenger MSM of host points and ints on `device`: the Jacobian
+        point as [16, 1] coordinates."""
+        P = self.pack_points(points, device)
+        digits = self.pack_scalars(scalars, window_bits, P[0].device)
+        return msm_device(self, P, digits, window_bits)
 
 
 # Bytes the bucket accumulation needs per window beyond the sort's own
@@ -231,8 +249,23 @@ def msm_many_device(dc: DeviceCurve, A, digits: torch.Tensor, window_bits: int, 
     return _msm_from_digits(dc, A, digits, window_bits, distinct)
 
 
-def pack_scalars(dc: DeviceCurve, scalars: list[int], window_bits: int, device="cpu"):
-    """Scalars -> int32[num_windows, n] window digits."""
+@torch.inference_mode()
+def msm_device(dc: DeviceCurve, P, digits: torch.Tensor, window_bits: int):
+    """Pippenger MSM of one scalar column. P: (X, Y, Z) limb-major [16, n]
+    affine lift, Z in {0, R} (R the Montgomery one, as pack_points gives);
+    digits: int[W, n]. A Z = 0 point becomes the (0, 0) base, and the
+    column runs msm_many_device with the complete mixed add (distinct=False:
+    the bases may repeat). Returns the Jacobian point as [16, 1] coordinates."""
+    X, Y, Z = P
+    inf = dc.df.is_zero(Z)[None, :]
+    A = (torch.where(inf, 0, X), torch.where(inf, 0, Y))
+    res = _msm_from_digits(dc, A, digits[None], window_bits, False)
+    return tuple(t[:, :1] for t in res)
+
+
+def pack_scalars(dc: DeviceCurve, scalars: list[int], window_bits: int, device=None):
+    """Scalars -> int32[num_windows, n] window digits on `device` (the CUDA
+    card unless the caller asks for another)."""
     r = dc.curve.scalar.p
     nbits = r.bit_length()
     num_windows = -(-nbits // window_bits)
@@ -244,4 +277,4 @@ def pack_scalars(dc: DeviceCurve, scalars: list[int], window_bits: int, device="
     bits = bits[:, : num_windows * window_bits].reshape(n, num_windows, window_bits)
     weights = (1 << np.arange(window_bits)).astype(np.int64)
     out = (bits * weights).sum(axis=2).T.astype(np.int32)
-    return torch.from_numpy(np.ascontiguousarray(out)).to(device)
+    return torch.from_numpy(np.ascontiguousarray(out)).to(resolve_device(device))

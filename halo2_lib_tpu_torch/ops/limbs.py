@@ -19,6 +19,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..utils.device import resolve_device
 from ..utils.fields import FQ_BN254, FR_BN254, PrimeField
 from . import cuda_field as cf
 
@@ -98,15 +99,17 @@ class DeviceField:
         self.mont_mul, self.square = self._mont_mul, self._square
         self.to_mont, self.from_mont = self._to_mont, self._from_mont
         self.inv, self.batch_inv = self._inv, self._batch_inv
+        self._pow_cache: dict[int, list[bool]] = {}
 
     # --- host <-> device packing ------------------------------------------------
-    def pack(self, values, mont: bool = True, device="cpu") -> torch.Tensor:
-        """Canonical ints -> limb-major [16, K] (an int -> [16, 1])."""
+    def pack(self, values, mont: bool = True, device=None) -> torch.Tensor:
+        """Canonical ints -> limb-major [16, K] (an int -> [16, 1]) on
+        `device` (the CUDA card unless the caller asks for another)."""
         if isinstance(values, int):
             values = [values]
         p = self.p_int
         vals = [(int(v) << 256) % p if mont else int(v) % p for v in values]
-        return to_device(ints_to_limbs_T(vals), device)
+        return to_device(ints_to_limbs_T(vals), resolve_device(device))
 
     def unpack(self, arr: torch.Tensor, mont: bool = True) -> list[int]:
         """Limb-major [..., 16, B] -> canonical ints in element order."""
@@ -145,6 +148,26 @@ class DeviceField:
         one[0] = 1
         return self._mont_mul(x, one)
 
+    # --- scalar-exponent ops ----------------------------------------------------
+    def pow(self, a, e: int):
+        """a^e for an int exponent e >= 0: MSB-first square-and-multiply, one
+        mont_mul launch per square and per set bit after the leading one (a
+        254-bit exponent is about 380 launches). The exponent's bits are
+        cached by e, as the JAX package caches its jitted function."""
+        if e < 0:
+            raise ValueError(f"pow: negative exponent {e}")
+        bits = self._pow_cache.get(e)
+        if bits is None:
+            bits = self._pow_cache[e] = [b == "1" for b in bin(e)[2:]]
+        if e == 0:
+            return self.one_mont_like(a).contiguous()
+        acc = a
+        for bit in bits[1:]:
+            acc = self._mont_mul(acc, acc)
+            if bit:
+                acc = self._mont_mul(acc, a)
+        return acc.clone() if acc is a else acc
+
     def _inv(self, a):
         """Fermat inverse a^(p-2); zero yields zero."""
         return cf.fermat_inv(self.fid, a)
@@ -182,16 +205,28 @@ class DeviceField:
         return (a == 0).all(dim=-2)
 
     @staticmethod
+    def eq(a, b) -> torch.Tensor:
+        """Element-wise equality: [..., 16, B] x2 -> bool [..., B]."""
+        return (a == b).all(dim=-2)
+
+    @staticmethod
     def select(cond, a, b):
         """cond ? a : b, cond shaped like the element dims [..., B]."""
         return torch.where(cond[..., None, :], a, b)
 
-    # --- constants ----------------------------------------------------------------------
-    def zero(self, shape=(), device="cpu") -> torch.Tensor:
-        return torch.zeros(_limb_shape(shape), dtype=torch.int32, device=device)
+    # --- constants (on `device`: the CUDA card unless the caller asks for another) --
+    def zero(self, shape=(), device=None) -> torch.Tensor:
+        """Zero tensor for element shape `shape` (an int B or a tuple whose
+        last axis is the lane axis); () -> a [16, 1] scalar."""
+        return torch.zeros(_limb_shape(shape), dtype=torch.int32, device=resolve_device(device))
 
-    def one_mont(self, shape=(), device="cpu") -> torch.Tensor:
-        return to_device(self.ONE_MONT[:, None], device).expand(_limb_shape(shape))
+    def one_mont(self, shape=(), device=None) -> torch.Tensor:
+        return to_device(self.ONE_MONT[:, None], resolve_device(device)).expand(_limb_shape(shape))
+
+    def const(self, value: int, shape=(), device=None) -> torch.Tensor:
+        """The field element `value` (Montgomery form) broadcast over element
+        shape `shape`."""
+        return self.pack(value, device=device).expand(_limb_shape(shape))
 
     def one_mont_like(self, a) -> torch.Tensor:
         return self._const(self.ONE_MONT, a).expand(a.shape)

@@ -77,6 +77,17 @@ itself,
   built after reseeding the JAX ``ecc/ec.py`` generator to
   ``MSM_RNG_SEED``; rewritten after each stage.
 
+* ``api_digests.json`` (with ``--api``, which freezes this and nothing
+  else): the JAX package's standalone device API on ``api_values`` inputs
+  (``api_digest`` below): every ``backend/poly.py`` ``Domain`` method at
+  k = 4, extension 4; ``DeviceField.pow``, ``eq`` and ``const``;
+  ``ParamsKZG.commit``, ``commit_lagrange``, ``commit_dev`` and
+  ``commit_many`` against the committed k=8 SRS; ``DeviceCurve.msm`` (and
+  so ``msm_device``) on ``api_msm_cases``. Tensors as SHA-256 of their
+  uint32 limbs, host ints and points as hex; every MSM is held to the host
+  curve before it is written. About 20 minutes (XLA:CPU compiles of the
+  device MSM).
+
 Run from the repository root:
 
     JAX_PLATFORMS=cpu python tests/data/torch_goldens/make_goldens.py [--k15] [--ecdsa] [--ops-only]
@@ -86,6 +97,7 @@ Run from the repository root:
     JAX_PLATFORMS=cpu python tests/data/torch_goldens/make_goldens.py --poseidon
     JAX_PLATFORMS=cpu python tests/data/torch_goldens/make_goldens.py --mxu
     JAX_PLATFORMS=cpu python tests/data/torch_goldens/make_goldens.py --msm [cases] [t_config] [full]
+    JAX_PLATFORMS=cpu python tests/data/torch_goldens/make_goldens.py --api
 
 The circuits are built here with the JAX eDSL, step for step as the port's
 ``utils/testing.py`` builds them with its own copy (the ECDSA circuit with
@@ -1180,6 +1192,169 @@ def freeze_msm(parts=("cases", "t_config", "full")) -> None:
         del pk, pb, builder, params
 
 
+# --- the standalone device API (--api) -----------------------------------------------------
+
+API_K, API_EXT, API_KZG_K = 4, 4, 8
+
+
+def api_values(seed: int, m: int, p: int = FR_BN254.p) -> list[int]:
+    """m canonical field values from a numpy seed, 0, 1 and p - 1 among
+    them (tests/test_torch_api.py makes the same ones)."""
+    rng = np.random.default_rng(seed)
+    words = rng.integers(0, 1 << 62, size=(m, 5), dtype=np.int64)
+    vals = [sum(int(w) << (62 * i) for i, w in enumerate(row)) % p for row in words]
+    for i, v in enumerate((0, 1, p - 1), start=1):
+        if i < m:
+            vals[i] = v
+    return vals
+
+
+API_POW_EXPONENTS = (0, 1, 2, 5, (1 << 64) + 1, FR_BN254.p - 2,
+                     0x2A5F3C9E1B7D4F6081C3E5A7B9D1F3E5C7A9B1D3F5E7C9A1B3D5F7E9C1A3B5D7)
+
+
+def api_msm_cases() -> dict:
+    """name -> (host points, scalars, window bits): the case of
+    tests/test_ec_device.py:test_msm (64 points: an identity base, a zero
+    scalar, duplicate bases with equal and with different scalars, one-window
+    scalars) and random cases of (37, 4) and (128, 8); the points from
+    random.Random, seeded from numpy (tests/test_torch_api.py makes the same
+    ones)."""
+    from halo2_lib_tpu.utils.curves import BN254_G1
+
+    r = BN254_G1.scalar.p
+    out = {}
+    rng = random.Random(64)
+    n = 64
+    pts = [BN254_G1.random_point(rng) for _ in range(n)]
+    scalars = [BN254_G1.random_scalar(rng) for _ in range(n)]
+    pts[3] = None
+    scalars[5] = 0
+    pts[10] = pts[11] = pts[12]
+    scalars[10] = scalars[11] = scalars[12]
+    pts[20] = pts[21]
+    scalars[30] = 1
+    scalars[31] = 255
+    out["dup_64"] = (pts, scalars, 8)
+    for n, c in ((37, 4), (128, 8)):
+        seed = int(np.random.default_rng(1000 + n).integers(0, 1 << 31))
+        rng = random.Random(seed)
+        pts = [BN254_G1.random_point(rng) for _ in range(n)]
+        out[f"rand_{n}_{c}"] = (pts, api_values(n, n, r), c)
+    return out
+
+
+def _hex_point(pt):
+    return None if pt is None else [hex(pt[0]), hex(pt[1])]
+
+
+def api_digest() -> dict:
+    """The JAX package's outputs on the API's inputs (see the module
+    docstring); tests/test_torch_api.py computes the same keys with the
+    port."""
+    import jax.numpy as jnp
+
+    from halo2_lib_tpu.backend.poly import Domain
+    from halo2_lib_tpu.ops.ec_device import DeviceCurve
+    from halo2_lib_tpu.ops.limbs import DeviceField
+    from halo2_lib_tpu.utils.curves import BN254_G1
+    from halo2_lib_tpu.utils.fields import FQ_BN254
+
+    def sha(t):
+        return hashlib.sha256(np.ascontiguousarray(np.asarray(t)).astype("<u4").tobytes()).hexdigest()
+
+    out = {}
+    # Domain at k = 4, extension 4
+    dom = Domain(API_K, API_EXT)
+    n = dom.n
+    c, e, q = api_values(1, n), api_values(2, n), api_values(3, n)
+    x = api_values(5, 1)[0]
+    C, E = dom.pack(c), dom.pack(e)
+    ext = dom.coeff_to_extended(C)
+    d = {
+        "lagrange_to_coeff": sha(dom.lagrange_to_coeff(E)),
+        "coeff_to_lagrange": sha(dom.coeff_to_lagrange(C)),
+        "coeff_to_extended": sha(ext),
+        "extended_to_coeff": sha(dom.extended_to_coeff(ext)),
+        "divide_by_vanishing": sha(dom.divide_by_vanishing(ext)),
+        "mul": sha(dom.mul(C, E)),
+        "add": sha(dom.add(C, E)),
+        "sub": sha(dom.sub(C, E)),
+        "rotate_ext_1": sha(dom.rotate_ext(ext, 1)),
+        "rotate_ext_-2": sha(dom.rotate_ext(ext, -2)),
+        "const_ext": sha(dom.const_ext(5)),
+        "const_h": sha(dom.const_h(q[0])),
+        "prefix_prod": sha(dom.prefix_prod(jnp.stack([C, E]))),
+        "pows_dev_16": sha(dom.pows_dev(x, n)),
+        "pows_dev_5": sha(dom.pows_dev(x, 5)),
+        "eval_many_at": [hex(v) for v in dom.eval_many_at(jnp.stack([C, E, dom.pack(q)]), x)],
+        "eval_many_at_odd": [hex(v) for v in dom.eval_many_at(jnp.stack([C[:, :13]]), x)],
+        "eval_coeffs_host": hex(dom.eval_coeffs_host(c, x)),
+        "l0_host": hex(dom.l0_host(x)),
+    }
+    out["domain"] = d
+    print("api: domain", flush=True)
+    # DeviceField
+    f = {}
+    for name, F in (("fr", FR_BN254), ("fq", FQ_BN254)):
+        df = DeviceField(F)
+        a = df.pack(api_values(6, 8, F.p))
+        for ex in API_POW_EXPONENTS:
+            f[f"pow_{name}_{ex:x}"] = sha(df.pow(a, ex))
+        b = df.pack(api_values(6, 4, F.p) + api_values(7, 4, F.p))
+        f[f"eq_{name}"] = [bool(v) for v in np.asarray(df.eq(a, b))]
+        for shape in ((), 8, (3, 8)):
+            f[f"const_{name}_{shape}"] = sha(df.const(F.p - 3, shape))
+    out["field"] = f
+    print("api: field", flush=True)
+    # ParamsKZG at k = 8 (the committed SRS)
+    params = ParamsKZG.read(os.path.join(ROOT, "params", f"kzg_bn254_{API_KZG_K}.srs"))
+    fr_df = DeviceField(FR_BN254)
+    nk = params.n
+    p1, p2 = api_values(11, nk), api_values(12, nk)
+
+    def host(pts, sc):
+        return BN254_G1.msm([g for g, s in zip(pts, sc) if g], [s for g, s in zip(pts, sc) if g])
+
+    kz = {
+        "commit": params.commit(p1),
+        "commit_short": params.commit(p1[:100]),
+        "commit_lagrange": params.commit_lagrange(p2),
+        "commit_lagrange_short": params.commit_lagrange(p2[:37]),
+        "commit_dev": params.commit_dev(fr_df.pack(p1[:200]), fr_df),
+    }
+    kz["commit_many"] = params.commit_many([p1[:64], p2])
+    want = {
+        "commit": host(params.g, p1), "commit_short": host(params.g, p1[:100]),
+        "commit_lagrange": host(params.g_lagrange, p2),
+        "commit_lagrange_short": host(params.g_lagrange, p2[:37]),
+        "commit_dev": host(params.g, p1[:200]),
+        "commit_many": [host(params.g, p1[:64]), host(params.g, p2)],
+    }
+    assert kz == want, "the JAX commitments differ from the host MSM"
+    out["kzg"] = {k: ([_hex_point(v) for v in val] if k == "commit_many" else _hex_point(val))
+                  for k, val in kz.items()}
+    print("api: kzg", flush=True)
+    # DeviceCurve.msm (msm_device) on the MSM cases
+    dc = DeviceCurve(DeviceField(BN254_G1.base), BN254_G1)
+    m = {}
+    for name, (pts, sc, wb) in api_msm_cases().items():
+        got = dc.unpack_points(dc.msm(pts, sc, wb))[0]
+        assert got == host(pts, sc), f"the JAX MSM {name} differs from the host MSM"
+        m[name] = _hex_point(got)
+    out["msm"] = m
+    return out
+
+
+def freeze_api() -> None:
+    t = time.time()
+    out = api_digest()
+    with open(os.path.join(HERE, "api_digests.json"), "w") as f:
+        json.dump(out, f, indent=1)
+        f.write("\n")
+    print(f"api_digests {time.time() - t:.1f}s", flush=True)
+
+
 def main() -> None:
     if "--large" in sys.argv:
         freeze_ntt((19, 21), "ntt_digests_large.json")
@@ -1192,6 +1367,9 @@ def main() -> None:
         return
     if "--mxu" in sys.argv:
         freeze_mxu()
+        return
+    if "--api" in sys.argv:
+        freeze_api()
         return
     if "--msm" in sys.argv:
         rest = sys.argv[sys.argv.index("--msm") + 1 :]

@@ -76,7 +76,7 @@ def bucket_sums_case():
 
 
 def _affine(dc, bases):
-    return tuple(dc.df.pack([0 if pt is None else pt[i] for pt in bases]) for i in (0, 1))
+    return tuple(dc.df.pack([0 if pt is None else pt[i] for pt in bases], device="cpu") for i in (0, 1))
 
 
 def _sorted(digits):
@@ -263,7 +263,7 @@ def test_msm_through_fused_sums_matches_host(dc):
     pts = [BN254_G1.random_point(rng) for _ in range(n)]
     scalars = [[rng.randrange(BN254_G1.scalar.p) for _ in range(n)] for _ in range(2)]
     A = _affine(dc, pts)
-    digits = torch.stack([pack_scalars(dc, s, c) for s in scalars])
+    digits = torch.stack([pack_scalars(dc, s, c, device="cpu") for s in scalars])
     out = dc.unpack_points(msm_many_device(dc, A, digits, c))
     for col, want_s in zip(out, scalars):
         want = None

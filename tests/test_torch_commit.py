@@ -83,7 +83,7 @@ def case():
     fr_df = DeviceField(FR_BN254)
     srs = ParamsKZG.read(os.path.join(HERE, "..", "params", "kzg_bn254_8.srs"), device="cpu")
     cols = commit_simple_case()
-    vals = torch.stack([fr_df.pack(c) for c in cols])  # [3, 16, 16]
+    vals = torch.stack([fr_df.pack(c, device="cpu") for c in cols])  # [3, 16, 16]
     bases = srs.affine_lagrange_bases("cpu")
     canon = fr_df._from_mont(vals)
     got = {m: cf.commit_dbl_add(canon[..., :m], *bases) for m in (16, 13)}

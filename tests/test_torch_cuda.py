@@ -273,8 +273,9 @@ def test_ec_madd(dev, distinct):
     acc[2] = base[2] = None
     acc[3] = base[3]
     acc[4] = (base[4][0], BN254_G1.base.p - base[4][1])
-    P = tuple(t.reshape(16, 2, 30).permute(1, 0, 2).contiguous().to(dev) for t in dc.pack_points(acc))
-    A = tuple(t.to(dev) for t in dc.pack_points_affine(base))
+    P = tuple(t.reshape(16, 2, 30).permute(1, 0, 2).contiguous().to(dev)
+              for t in dc.pack_points(acc, device="cpu"))
+    A = tuple(t.to(dev) for t in dc.pack_points_affine(base, device="cpu"))
     cf.reset_launches()
     got = cf.ec_madd(P, A, distinct)
     assert cf.LAUNCHES["ec_madd"] == 1
@@ -378,8 +379,8 @@ def test_msm_on_the_card_matches_cpu(dev):
     dc = DeviceCurve(DeviceField(BN254_G1.base), BN254_G1)
     pts = [BN254_G1.random_point(rng) for _ in range(256)]
     scal = [rng.randrange(BN254_G1.scalar.p) for _ in range(256)]
-    A_cpu = dc.pack_points_affine(pts)
-    digits = pack_scalars(dc, scal, 8)[None]
+    A_cpu = dc.pack_points_affine(pts, device="cpu")
+    digits = pack_scalars(dc, scal, 8, device="cpu")[None]
     want = dc.unpack_points(msm_many_device(dc, A_cpu, digits, 8))
     A_dev = tuple(t.to(dev) for t in A_cpu)
     cf.reset_launches()

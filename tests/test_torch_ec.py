@@ -78,14 +78,14 @@ def test_case_points_match_the_jax_oracle():
 
 def test_ec_add_all_cases(dc, jax_digests):
     pts1, pts2, _ = _case_points()
-    got = dc.add(dc.pack_points(pts1), dc.pack_points(pts2))
+    got = dc.add(dc.pack_points(pts1, device="cpu"), dc.pack_points(pts2, device="cpu"))
     assert dc.unpack_points(got) == [BN254_G1.add(p, q) for p, q in zip(pts1, pts2)]
     assert _digest(got) == jax_digests["add"]
 
 
 def test_ec_double(dc, jax_digests):
     _, _, pts = _case_points()
-    got = dc.double(dc.pack_points(pts))
+    got = dc.double(dc.pack_points(pts, device="cpu"))
     assert dc.unpack_points(got) == [BN254_G1.double(p) for p in pts]
     assert _digest(got) == jax_digests["double"]
 
@@ -117,8 +117,8 @@ def test_ec_madd_all_cases(dc, jax_digests, distinct):
     limb (frozen digest) and the host oracle in affine form; with
     distinct=True the doubling lane (3) is outside the contract."""
     jac, aff, acc, base = _madd_case_points()
-    P1 = tuple(dc.df.pack(c) for c in jac)
-    A2 = tuple(dc.df.pack(c) for c in aff)
+    P1 = tuple(dc.df.pack(c, device="cpu") for c in jac)
+    A2 = tuple(dc.df.pack(c, device="cpu") for c in aff)
     got = cf.ec_madd(P1, A2, distinct)
     assert _digest(got) == jax_digests["madd_distinct" if distinct else "madd"]
     want = [BN254_G1.add(p, q) for p, q in zip(acc, base)]
@@ -134,8 +134,8 @@ def test_ec_madd_shared_bases(dc):
     rng = random.Random(14)
     acc = [BN254_G1.random_point(rng) for _ in range(8)]
     base = [BN254_G1.random_point(rng) for _ in range(4)]
-    P = tuple(t.reshape(16, 2, 4).permute(1, 0, 2) for t in dc.pack_points(acc))
-    A = dc.pack_points_affine(base)
+    P = tuple(t.reshape(16, 2, 4).permute(1, 0, 2) for t in dc.pack_points(acc, device="cpu"))
+    A = dc.pack_points_affine(base, device="cpu")
     got = tuple(t.permute(1, 0, 2).reshape(16, 8) for t in cf.ec_madd(P, A, False))
     assert dc.unpack_points(got) == [BN254_G1.add(p, base[i % 4]) for i, p in enumerate(acc)]
 
@@ -159,7 +159,7 @@ def test_commit_double_and_add(dc, srs8, m):
         words = rng.integers(0, 1 << 62, size=(m, 5), dtype=np.int64)
         cols.append([sum(int(w) << (62 * i) for i, w in enumerate(row)) % R_ORDER for row in words])
     cols[1][:3] = [0, 1, R_ORDER - 1]
-    vals = torch.stack([fr_df.pack(c) for c in cols])  # [2, 16, m] Montgomery
+    vals = torch.stack([fr_df.pack(c, device="cpu") for c in cols])  # [2, 16, m] Montgomery
     bases = srs8.affine_lagrange_bases("cpu")
     got = host_points(_pack_affine(dc.df, *commit_double_and_add(dc, fr_df, vals, bases)))
     want = []
@@ -179,8 +179,8 @@ def test_ec_add_batched_broadcast(dc):
     rng = random.Random(3)
     pts = [BN254_G1.random_point(rng) for _ in range(8)]
     q = BN254_G1.random_point(rng)
-    P = tuple(t.reshape(16, 2, 4).permute(1, 0, 2) for t in dc.pack_points(pts))
-    Qp = dc.pack_points([q])
+    P = tuple(t.reshape(16, 2, 4).permute(1, 0, 2) for t in dc.pack_points(pts, device="cpu"))
+    Qp = dc.pack_points([q], device="cpu")
     got = dc.unpack_points(tuple(t.permute(1, 0, 2).reshape(16, 8) for t in dc.add(P, Qp)))
     assert got == [BN254_G1.add(p, q) for p in pts]
 
@@ -199,7 +199,7 @@ def test_bucket_scan_plain_matches_host(dc, distinct):
     start[:, 0, :] = 1
     start[0, 3, 2] = start[1, 4, 0] = 1
     flat = [pts[w][r][l] for w in range(Wb) for r in range(R) for l in range(CL)]
-    Ax, Ay = dc.pack_points_affine(flat)  # [16, Wb*R*CL]
+    Ax, Ay = dc.pack_points_affine(flat, device="cpu")  # [16, Wb*R*CL]
     axy = torch.cat([_pack(Ax), _pack(Ay)], dim=0).reshape(16, Wb, R, CL).permute(1, 2, 0, 3)
     out = cf.bucket_scan(axy.contiguous(), torch.from_numpy(start), distinct)
     assert out.shape == (Wb, R, 48, CL)
@@ -237,8 +237,8 @@ def test_msm_many_matches_host(dc, n, window_bits):
         cols.append([sum(int(w) << (62 * i) for i, w in enumerate(row)) % R_ORDER for row in words])
     cols[-1][: n // 3] = [0] * (n // 3)
     cols[-1][n // 3] = R_ORDER - 1
-    A = dc.pack_points_affine(pts)
-    digits = torch.stack([pack_scalars(dc, s, window_bits) for s in cols])
+    A = dc.pack_points_affine(pts, device="cpu")
+    digits = torch.stack([pack_scalars(dc, s, window_bits, device="cpu") for s in cols])
     got = dc.unpack_points(msm_many_device(dc, A, digits, window_bits, distinct=False))
     want = [BN254_G1.mul(BN254_G1.g, sum(k * (i + 1) for i, k in enumerate(s))) for s in cols]
     assert got == want
@@ -256,8 +256,8 @@ def test_msm_distinct_bases(dc):
             pts.append(acc)
             acc = BN254_G1.double(acc)
     scal = [rng.randrange(R_ORDER) for _ in range(len(pts))]
-    A = dc.pack_points_affine(pts)
-    digits = pack_scalars(dc, scal, 8)[None]
+    A = dc.pack_points_affine(pts, device="cpu")
+    digits = pack_scalars(dc, scal, 8, device="cpu")[None]
     got = dc.unpack_points(msm_many_device(dc, A, digits, 8, distinct=True))
     e1 = sum(k << i for i, k in enumerate(scal[:128]))
     e2 = sum(k << i for i, k in enumerate(scal[128:]))
@@ -267,11 +267,11 @@ def test_msm_distinct_bases(dc):
 def test_tree_reduce_and_select(dc):
     rng = random.Random(12)
     pts = [BN254_G1.random_point(rng) for _ in range(5)] + [None]
-    P = dc.pack_points(pts)
+    P = dc.pack_points(pts, device="cpu")
     total = None
     for p in pts:
         total = BN254_G1.add(total, p)
     assert dc.unpack_points(dc.tree_reduce(P)) == [total]
     cond = torch.tensor([True, False] * 3)
-    Q = dc.identity((6,))
+    Q = dc.identity((6,), device="cpu")
     assert dc.unpack_points(dc.select(cond, P, Q)) == [p if i % 2 == 0 else None for i, p in enumerate(pts)]

@@ -52,7 +52,7 @@ def fields(request):
 
 def _pair(df, jf, p, seed):
     xs, ys = _values(p, seed), _values(p, seed + 1)[::-1]
-    a, b = df.pack(xs), df.pack(ys)
+    a, b = df.pack(xs, device="cpu"), df.pack(ys, device="cpu")
     return xs, ys, a, b, jnp.asarray(a.numpy().astype(np.uint32)), jnp.asarray(b.numpy().astype(np.uint32))
 
 
@@ -79,7 +79,7 @@ def test_binary_ops_match_jax(fields, op):
 def test_mont_conversions(fields):
     df, jf, p = fields
     xs = _values(p, 3)
-    raw = df.pack(xs, mont=False)
+    raw = df.pack(xs, mont=False, device="cpu")
     m = df.to_mont(raw)
     assert df.unpack(m) == xs
     assert df.unpack(df.from_mont(m), mont=False) == xs
@@ -89,22 +89,22 @@ def test_mont_conversions(fields):
 def test_broadcast_scalar_and_batch(fields):
     df, _, p = fields
     xs = _values(p, 5)
-    a = df.pack(xs).reshape(16, 2, B // 2).permute(1, 0, 2)  # [2, 16, B/2]
-    c = df.pack([12345])  # [16, 1]
+    a = df.pack(xs, device="cpu").reshape(16, 2, B // 2).permute(1, 0, 2)  # [2, 16, B/2]
+    c = df.pack([12345], device="cpu")  # [16, 1]
     assert df.unpack(df.mont_mul(a, c)) == [v * 12345 % p for v in xs]
 
 
 def test_inverse_zero_maps_to_zero(fields):
     df, _, p = fields
     xs = _values(p, 7)[:6] + [0]
-    got = df.unpack(df.inv(df.pack(xs)))
+    got = df.unpack(df.inv(df.pack(xs, device="cpu")))
     assert got == [pow(x, p - 2, p) for x in xs]
 
 
 def test_batch_inv_matches_host(fields):
     df, _, p = fields
     xs = _values(p, 9)
-    got = df.unpack(df.batch_inv(df.pack(xs)))
+    got = df.unpack(df.batch_inv(df.pack(xs, device="cpu")))
     assert got == [pow(x, p - 2, p) if x else 0 for x in xs]
 
 
@@ -114,7 +114,7 @@ def test_batch_inv_matches_jax_fr():
     df = DeviceField(FR_BN254)
     with open(os.path.join(os.path.dirname(__file__), "data", "torch_goldens", "field_digests.json")) as f:
         want = json.load(f)["batch_inv_fr"]
-    got = df.batch_inv(df.pack(_values(FR_BN254.p, 11)))
+    got = df.batch_inv(df.pack(_values(FR_BN254.p, 11), device="cpu"))
     assert hashlib.sha256(got.numpy().astype("<u4").tobytes()).hexdigest() == want
 
 
@@ -123,7 +123,7 @@ def test_batch_inv_batched_rows():
     df = DeviceField(FR_BN254)
     p = FR_BN254.p
     xs, ys = _values(p, 13), _values(p, 14)
-    a = torch.stack([df.pack(xs), df.pack(ys)])
+    a = torch.stack([df.pack(xs, device="cpu"), df.pack(ys, device="cpu")])
     got = df.batch_inv(a)
     assert df.unpack(got[0]) == [pow(x, p - 2, p) for x in xs]
     assert df.unpack(got[1]) == [pow(y, p - 2, p) for y in ys]
@@ -139,8 +139,8 @@ def test_mont_mul_matches_pallas_interpret():
     rng = np.random.default_rng(21)
     vals = [int(v) for v in rng.integers(0, 1 << 62, size=512)]
     vals[:4] = [0, 1, FR_BN254.p - 1, (1 << 256) % FR_BN254.p]
-    a = df.pack(vals)
-    b = df.pack(vals[::-1])
+    a = df.pack(vals, device="cpu")
+    b = df.pack(vals[::-1], device="cpu")
     want = jpf.mont_mul(
         jf, jnp.asarray(a.numpy().astype(np.uint32)), jnp.asarray(b.numpy().astype(np.uint32)),
         interpret=True,
@@ -152,7 +152,7 @@ def test_mont_mul_matches_pallas_interpret():
 def test_cpu_wrappers_use_the_plain_version(name):
     """On CPU tensors a wrapper runs the plain version and launches nothing."""
     cf.reset_launches()
-    a = DeviceField(FR_BN254).pack([3, 5, 7])
+    a = DeviceField(FR_BN254).pack([3, 5, 7], device="cpu")
     out = cf.fermat_inv(cf.FR, a) if name == "fermat_inv" else getattr(cf, name)(cf.FR, a, a)
     plain = getattr(cf, f"{name}_plain")
     want = plain(cf.FR, a) if name == "fermat_inv" else plain(cf.FR, a, a)

@@ -57,7 +57,7 @@ def _jacobian(dc, pts, rng):
             continue
         z = int(rng.integers(1, 1 << 62)) * int(rng.integers(1, 1 << 62)) % Q
         X.append(pt[0] * z * z % Q), Y.append(pt[1] * z**3 % Q), Z.append(z)
-    return tuple(dc.df.pack(v) for v in (X, Y, Z))
+    return tuple(dc.df.pack(v, device="cpu") for v in (X, Y, Z))
 
 
 def _pool(rng, k):
@@ -234,7 +234,8 @@ def test_tail_matches_jax_digests(dc):
         golden = json.load(f)
     C, W, c, pts, jac = _tail_case_points()
     nb = (1 << c) - 1
-    S = tuple(dc.df.pack(v).reshape(16, C * W, nb).permute(1, 0, 2).contiguous() for v in jac)
+    S = tuple(dc.df.pack(v, device="cpu").reshape(16, C * W, nb).permute(1, 0, 2).contiguous()
+              for v in jac)
     T = cf.bucket_weight(S, 64)
     assert _digest(T) == golden["msm_tail_window_sums"]
     assert dc.unpack_points(T) == [_weighted_sum(w) for w in pts]
@@ -252,8 +253,8 @@ def test_msm_many_columns_match_host(dc):
         pts.append(acc)
     scal = [[int(rng.integers(0, 1 << 62)) ** 4 % R_ORDER for _ in range(n)] for _ in range(C)]
     scal[1][: n // 2] = [0] * (n // 2)
-    digits = torch.stack([pack_scalars(dc, s, c) for s in scal])
-    got = msm_many_device(dc, dc.pack_points_affine(pts), digits, c, distinct=False)
+    digits = torch.stack([pack_scalars(dc, s, c, device="cpu") for s in scal])
+    got = msm_many_device(dc, dc.pack_points_affine(pts, device="cpu"), digits, c, distinct=False)
     expect = [BN254_G1.mul(BN254_G1.g, sum(k * (i + 1) for i, k in enumerate(s))) for s in scal]
     assert dc.unpack_points(got) == expect
 

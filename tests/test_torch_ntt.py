@@ -55,7 +55,7 @@ def _digest(t: torch.Tensor) -> str:
 
 @pytest.mark.parametrize("log_n", range(1, 11))
 def test_ntt_matches_jax_goldens(df, digests, log_n):
-    x = torch.stack([df.pack(c) for c in ntt_inputs(log_n)])  # [2, 16, n]
+    x = torch.stack([df.pack(c, device="cpu") for c in ntt_inputs(log_n)])  # [2, 16, n]
     ntt, coset = NTT(df, log_n, "cpu"), CosetNTT(df, log_n, 7, "cpu")
     want = digests[str(log_n)]
     assert _digest(ntt.forward(x)) == want["forward"]
@@ -68,7 +68,7 @@ def test_ntt_matches_jax_live(df):
     from halo2_lib_tpu.utils.fields import FR_BN254 as JFR
 
     log_n = 4
-    x = torch.stack([df.pack(c) for c in ntt_inputs(log_n, 3)])
+    x = torch.stack([df.pack(c, device="cpu") for c in ntt_inputs(log_n, 3)])
     jntt = JaxNTT(JaxField(JFR), log_n)
     jx = jnp.asarray(x.numpy().astype(np.uint32))
     ntt = NTT(df, log_n, "cpu")
@@ -82,14 +82,14 @@ def test_ntt_matches_host_dft(df):
     (coeffs,) = ntt_inputs(log_n, 1)
     w = FR_BN254.nth_root_of_unity(log_n)
     want = [sum(c * pow(w, i * j, P) for j, c in enumerate(coeffs)) % P for i in range(n)]
-    got = df.unpack(new_ntt(df, log_n, "cpu").forward(df.pack(coeffs)))
+    got = df.unpack(new_ntt(df, log_n, "cpu").forward(df.pack(coeffs, device="cpu")))
     assert got == want
 
 
 def test_forward_cols_chunks_and_round_trip(df):
     log_n = 5
     cols = ntt_inputs(log_n, 3)
-    x = torch.stack([df.pack(c) for c in cols])
+    x = torch.stack([df.pack(c, device="cpu") for c in cols])
     ntt = NTT(df, log_n, "cpu")
     ntt.CHUNK = 2  # exercise the column chunking
     y = ntt.forward_cols(x)
@@ -138,7 +138,7 @@ def test_four_step_matches_jax_live(df):
     log_n = 12
     ntt = new_ntt(df, log_n, "cpu")
     assert isinstance(ntt, FourStepNTT) and ntt.factors == [32, 128]
-    x = torch.stack([df.pack(c) for c in ntt_inputs(log_n, 2)])
+    x = torch.stack([df.pack(c, device="cpu") for c in ntt_inputs(log_n, 2)])
     jntt = JaxNTT(JaxField(JFR), log_n)
     jx = jnp.asarray(x.numpy().astype(np.uint32))
     assert np.array_equal(ntt.forward(x).numpy(), np.asarray(jntt.forward(jx)).astype(np.int32))
@@ -249,7 +249,7 @@ def _small_case(df, log_n: int, variant: str):
     columns (the golden script's two, then one holding 0, 1 and p - 1)."""
     cols = ntt_inputs(log_n, 3)
     cols[2][: 3] = [0, 1, P - 1][: len(cols[2])]
-    x = torch.stack([df.pack(c) for c in cols])
+    x = torch.stack([df.pack(c, device="cpu") for c in cols])
     ntt, coset = NTT(df, log_n, "cpu"), CosetNTT(df, log_n, SHIFT, "cpu")
     forward = variant in ("forward", "coset_forward")
     pre = coset.shift_pows if variant == "coset_forward" else None
@@ -265,7 +265,7 @@ def jax_2_11():
     from halo2_lib_tpu.utils.fields import FR_BN254 as JFR
 
     jdf = JaxField(JFR)
-    x = torch.stack([DeviceField(FR_BN254).pack(c) for c in ntt_inputs(11)])
+    x = torch.stack([DeviceField(FR_BN254).pack(c, device="cpu") for c in ntt_inputs(11)])
     jx = jnp.asarray(x.numpy().astype(np.uint32))
     jntt, jcoset = JaxNTT(jdf, 11), JaxCosetNTT(jdf, 11, SHIFT)
     fns = {"forward": jntt.forward, "inverse": jntt.inverse,

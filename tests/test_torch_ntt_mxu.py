@@ -107,14 +107,14 @@ def _four(df, log_n: int, x: torch.Tensor) -> dict:
 
 @pytest.mark.parametrize("log_n", [6, 7, 9, 11])
 def test_mxu_matches_jax_mxu_digests(df, mxu_digests, log_n):
-    x = torch.stack([df.pack(c) for c in ntt_inputs(log_n)])
+    x = torch.stack([df.pack(c, device="cpu") for c in ntt_inputs(log_n)])
     got = {k: _digest(v) for k, v in _four(df, log_n, x).items()}
     assert got == mxu_digests[str(log_n)]
 
 
 @pytest.mark.parametrize("log_n", range(6, 11))
 def test_mxu_matches_stockham_digests(df, ntt_digests, log_n):
-    x = torch.stack([df.pack(c) for c in ntt_inputs(log_n)])
+    x = torch.stack([df.pack(c, device="cpu") for c in ntt_inputs(log_n)])
     got = {k: _digest(v) for k, v in _four(df, log_n, x).items()}
     assert got == ntt_digests[str(log_n)]
 
@@ -123,7 +123,7 @@ def test_mxu_batched_and_forced_split(df, mxu_digests):
     """3 columns at 2^7, and the outer four-step level over two base
     transforms forced at 2^8 (k1 = 3, k2 = 5), as the JAX test builds it."""
     mxu = MxuNTT(df, 7, "cpu")
-    x = torch.stack([df.pack(c) for c in ntt_inputs(7, 3)])
+    x = torch.stack([df.pack(c, device="cpu") for c in ntt_inputs(7, 3)])
     assert _digest(mxu.forward(x)) == mxu_digests["batched_7"]["forward"]
     assert _digest(mxu.inverse(x)) == mxu_digests["batched_7"]["inverse"]
     ref = MxuNTT(df, 8, "cpu")
@@ -132,7 +132,7 @@ def test_mxu_batched_and_forced_split(df, mxu_digests):
     forced.k1, forced.k2 = 3, 5
     forced.sub = (MxuNTT(df, 3, "cpu"), MxuNTT(df, 5, "cpu"))
     forced._consts = {fwd: forced._build(fwd) for fwd in (True, False)}
-    x = torch.stack([df.pack(c) for c in ntt_inputs(8)])
+    x = torch.stack([df.pack(c, device="cpu") for c in ntt_inputs(8)])
     assert _digest(forced.forward(x)) == mxu_digests["split_8"]["forward"]
     assert _digest(forced.inverse(x)) == mxu_digests["split_8"]["inverse"]
     assert torch.equal(forced.forward(x), ref.forward(x))
@@ -329,7 +329,7 @@ def test_kernel_model_matches_plain(df, L, R, C, diag):
     x[0, :, 0, 0] = torch.tensor([((P - 1) >> (16 * j)) & 0xFFFF for j in range(16)])
     pre = _rand_limbs(gen, (16, R, C)) if diag in ("pre", "both") else None
     post = {"post": _rand_limbs(gen, (16, R, C)), "both": _rand_limbs(gen, (16, R, C)),
-            "scalar": df.pack(7)}.get(diag)
+            "scalar": df.pack(7, device="cpu")}.get(diag)
     want = cf.dft_stage_plain(cf.FR, x, planes, pre, post)
     assert torch.equal(kernel_model(x, planes, pre, post), want)
     assert torch.equal(cf.dft_stage(cf.FR, x, planes, pre, post), want)
@@ -365,7 +365,7 @@ def test_dft_ntt_plain_matches_the_frozen_digests(df, mxu_digests, ntt_digests, 
     """dft_ntt_plain itself (forward, forward with pre, inverse with 1/n,
     inverse with post) against the JAX MXU NTT's digests (2^6, 2^7, 2^9,
     2^11) and the JAX Stockham NTT's (2^6..2^10)."""
-    x = torch.stack([df.pack(c) for c in ntt_inputs(log_n)])
+    x = torch.stack([df.pack(c, device="cpu") for c in ntt_inputs(log_n)])
     got = {k: _digest(v) for k, v in _ntt_forms(df, log_n, x).items()}
     held = [d[str(log_n)] for d in (mxu_digests, ntt_digests) if str(log_n) in d]
     assert held and all(got == want for want in held)
@@ -378,7 +378,7 @@ def test_dft_ntt_stops_at_2048_points(df, monkeypatch):
     four-step NTT's values."""
     mxu = MxuNTT(df, 12, "cpu")
     tw, w1, w2 = mxu._consts[True]
-    x = torch.stack([df.pack(c) for c in ntt_inputs(12, cols=1)])
+    x = torch.stack([df.pack(c, device="cpu") for c in ntt_inputs(12, cols=1)])
     with pytest.raises(ValueError, match="n <= 2048"):
         cf.dft_ntt(cf.FR, x, w1, w2, tw)
 
@@ -545,7 +545,7 @@ def test_ntt_kernel_model_matches_plain(df, log_n, form):
     cluster of two blocks), 2 columns with p - 1 among the values, in the form named
     (pre row, 1/n scalar, post row)."""
     mxu, fwd, inv = _ntt_consts(df, log_n)
-    x = torch.stack([df.pack(c) for c in ntt_inputs(log_n)])
+    x = torch.stack([df.pack(c, device="cpu") for c in ntt_inputs(log_n)])
     x[0, :, 0] = torch.tensor([((P - 1) >> (16 * j)) & 0xFFFF for j in range(16)])
     tw, w1, w2 = fwd if form.endswith("forward") else inv
     pre = pows_host(df, 7, mxu.n, "cpu") if form == "coset_forward" else None
@@ -565,7 +565,7 @@ def test_mxu_matches_jax_live(df):
     from halo2_lib_tpu.utils.fields import FR_BN254 as JFR
 
     log_n = 6
-    x = torch.stack([df.pack(c) for c in ntt_inputs(log_n, 3)])
+    x = torch.stack([df.pack(c, device="cpu") for c in ntt_inputs(log_n, 3)])
     jm = JaxMxuNTT(JaxField(JFR), log_n)
     jx = jnp.asarray(x.numpy().astype(np.uint32))
     mxu = MxuNTT(df, log_n, "cpu")

@@ -106,7 +106,7 @@ def _ntt_inputs(fr, log_n: int):
     rng = np.random.default_rng(1000 + log_n)
     words = rng.integers(0, 1 << 63, size=(2, 1 << log_n, 4), dtype=np.int64)
     cols = [[sum(int(w) << (63 * i) for i, w in enumerate(el)) % P for el in col] for col in words]
-    return torch.stack([fr.pack(c) for c in cols])
+    return torch.stack([fr.pack(c, device="cpu") for c in cols])
 
 
 def _digest(t):

@@ -105,7 +105,7 @@ def test_g1_batch_mul_plain_against_the_host_curve():
     rng = random.Random(5)
     scalars = [0, 1, 2, r - 1] + [rng.randrange(r) for _ in range(12)]
     dc = DeviceCurve(DeviceField(BN254_G1.base), BN254_G1)
-    Gx, Gy = dc.pack_points_affine([BN254_G1.g])
+    Gx, Gy = dc.pack_points_affine([BN254_G1.g], device="cpu")
     X, Y, Z = cf.g1_batch_mul(to_device(ints_to_limbs_T(scalars), "cpu"), Gx, Gy)
     ax, ay = kzg._affine_mont(dc.df, X, Y, Z)
     got = list(zip(dc.df.unpack(ax), dc.df.unpack(ay)))
@@ -162,7 +162,7 @@ def test_comb_table_entries_are_the_multiples_of_g():
     """Entry j * 64 + d - 1 of G's table is d 2^(7j) G (Montgomery affine
     words), at sampled (j, d) over every window's first and last."""
     dc = DeviceCurve(DeviceField(BN254_G1.base), BN254_G1)
-    tab = cf.g1_comb_table(*dc.pack_points_affine([BN254_G1.g]))
+    tab = cf.g1_comb_table(*dc.pack_points_affine([BN254_G1.g], device="cpu"))
     assert tuple(tab.shape) == (cf.COMB_WINDOWS * cf.COMB_HALF, 16)
     tx, ty = cf.unpack_point_words(tab)
     q = FQ_BN254.p
@@ -181,7 +181,7 @@ def test_comb_against_the_host_curve_and_the_old_double_and_add():
     rng = random.Random(11)
     scalars = list(EDGE.values()) + [rng.randrange(r) for _ in range(5)]
     dc = DeviceCurve(DeviceField(BN254_G1.base), BN254_G1)
-    Gx, Gy = dc.pack_points_affine([BN254_G1.g])
+    Gx, Gy = dc.pack_points_affine([BN254_G1.g], device="cpu")
     sc = to_device(ints_to_limbs_T(scalars), "cpu")
     comb = cf.g1_batch_mul(sc, Gx, Gy)
     old = old_g1_batch_mul(sc, Gx, Gy)
@@ -202,7 +202,7 @@ def test_rawbytes_round_trip(setup8, srs8_bytes):
     assert (got.g2, got.s_g2) == (setup8.g2, setup8.s_g2)
     Ax, Ay = got.affine_lagrange_bases("cpu")
     assert torch.equal(Ax, setup8.affine_lagrange_bases("cpu")[0])
-    assert torch.equal(Ay, got.device_curve().pack_points_affine(got.g_lagrange)[1])
+    assert torch.equal(Ay, got.device_curve().pack_points_affine(got.g_lagrange, device="cpu")[1])
 
 
 @pytest.mark.parametrize("basis, point, coord, value", [(0, 0, 0, 0), (1, 255, 1, 0), (0, 7, 1, 1)])
