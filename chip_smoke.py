@@ -11,6 +11,11 @@ printing its own lines; any failure raises
 and exits non-zero:
 
 1. build   - compile the CUDA kernels from halo2_lib_tpu_torch/csrc (nvcc).
+1b. engine - the host witness engine (halo2_lib_tpu_torch/native.py,
+             csrc/host_engine.c): its earlier builds removed from _build/,
+             built by cc and loaded; the gate chip's emitter and
+             Context.assign_region's hook must hold it (every witness and
+             column packing after this runs through it).
 2. kernels - every kernel against its plain PyTorch version on the card, at a
              ragged size, bit for bit (ec_add and ec_madd with identity
              operands, P + P and P + (-P) lanes, ec_madd with (0, 0) bases and
@@ -123,9 +128,19 @@ and exits non-zero:
              proof's launches (counts reset just before it) printed. Then the
              k=9 golden circuit pipelined (commit_dbl_add on the side stream):
              bytes equal to golden_k9.npz.
+7b. engine - (after 7) phase 7's plain e2e region in turns host engine,
+             Python path, Python path, engine (native.python_path: the
+             witness's emitters and the column packing in Python): e2e,
+             witness and the advice columns' _u16_cols seconds each way,
+             every create_proof's _u16_cols packed again the other way with
+             equal limbs, every proof the JAX digest; one
+             {"engine_runs": ...} JSON line.
 8. mock    - DeviceMockProver (the gate stencil through mont_mul, field_add
              and field_sub on the card, the copy gather) on the ECDSA MOCK
-             circuit (against the host MockProver, both timed) and on the
+             circuit (against the host MockProver, both timed; then the host
+             MockProver's Python gate scan against the host engine's C
+             gate-column check over the same columns, in turns, equal first
+             rows) and on the
              pairing k=19 MOCK circuit of phase 6 (timed), both satisfied;
              each again with one advice value changed at a gated row (the
              failure named at that column and row); the golden circuit with
@@ -179,7 +194,9 @@ and exits non-zero:
              make_goldens.py --msm reached). Stage seconds, peak device
              memory, copies, contexts and launches printed (the kernel rows'
              `launches_msm_k13`, `launches_msm_k17`; counts reset just
-             before each). Then a k=12 proof (the ECDSA circuit at k=12)
+             before each); keygen's u16 packing through the host engine and
+             again on the Python path, equal limbs, both timed. Then a k=12
+             proof (the ECDSA circuit at k=12)
              with each switch: HALO2_NO_FOURSTEP_NTT=1 (MxuNTT on dft_stage
              for 2^12 and 2^14), with HALO2_NO_MXU_NTT=1 too (the radix-2
              stage loop of ntt_butterfly launches), HALO2_PROVER_SELFCHECK=1
@@ -187,8 +204,11 @@ and exits non-zero:
              equal the proof's without it; and the golden k=9 proof with the
              commit bound HALO2_COMMIT_SIMPLE_MAX=0 sets (Pippenger, not
              commit_dbl_add) equal to golden_k9.npz (the kernel rows'
-             `launches_switches`: all these proofs). `--msm-only` builds the
-             kernels, checks them (phase 2) and runs this phase alone.
+             `launches_switches`: all these proofs). At its end the device
+             memory allocated may exceed its start by 2 GiB at most, with no
+             gc.collect(): its keys, runtimes and proofs are freed when their
+             last reference goes. `--msm-only` builds the kernels, checks
+             them (phase 2) and runs this phase alone.
 13. api    - (after 12, before 5) the JAX package's standalone device API
              at the north star's sizes, the counts reset just before it and
              read just after (the kernel rows' `launches_api`): an MSM over
@@ -368,6 +388,39 @@ def nvidia_smi() -> str:
 
 def log(msg: str) -> None:
     print(msg, flush=True)
+
+
+def packed_both_ways(prover_mod, native, np, fn, python: bool = False):
+    """Run fn() with backend/prover.py's _u16_cols recording each call (its
+    columns, packing and seconds); then pack every recorded call again the
+    other way (on the Python path if fn ran the host engine, through the
+    engine if fn ran inside native.python_path, as `python` says) and
+    require the same limbs. Returns fn's result and, per call, (columns,
+    rows, engine seconds, Python-path seconds)."""
+    calls, pack = [], prover_mod._u16_cols
+
+    def recorded(cols, n):
+        t = time.time()
+        out = pack(cols, n)
+        calls.append((cols, n, out, time.time() - t))
+        return out
+
+    prover_mod._u16_cols = recorded
+    try:
+        result = fn()
+    finally:
+        prover_mod._u16_cols = pack
+    rows = []
+    with contextlib.nullcontext() if python else native.python_path():
+        for cols, n, out, secs in calls:
+            t = time.time()
+            again = pack(cols, n)
+            t_again = time.time() - t
+            if not np.array_equal(again, out):
+                raise AssertionError(f"_u16_cols of {len(cols)} x {n}: the host engine's "
+                                     "packing differs from the Python path's")
+            rows.append((len(cols), n, *((t_again, secs) if python else (secs, t_again))))
+    return result, rows
 
 
 def rand_limbs(gen, shape, torch, p: int):
@@ -1026,7 +1079,7 @@ def main() -> None:
     from halo2_lib_tpu_torch.ecc import ec as port_ec
     from halo2_lib_tpu_torch.utils.curves import BN254_G1
     from halo2_lib_tpu_torch.utils.fields import FQ_BN254, FR_BN254
-    from halo2_lib_tpu_torch.backend.mock import MockProver
+    from halo2_lib_tpu_torch.backend.mock import MockProver, gate_failures
     from halo2_lib_tpu_torch.backend.mock_device import DeviceMockProver
     from halo2_lib_tpu_torch.backend.pipeline import Phase0Pipeline
     from halo2_lib_tpu_torch.backend.precompile import warm_prover
@@ -1059,6 +1112,25 @@ def main() -> None:
         raise AssertionError(f"ptxas's report names no g1_fixed_mul_k or dft_ntt_k: {ptxas}")
     log("[build] ptxas (registers, spill stores, spill loads) per instantiation: "
         + json.dumps(ptxas))
+
+    # --- 1b. the host witness engine (csrc/host_engine.c) from a clean build --------------------
+    from halo2_lib_tpu_torch import native
+    from halo2_lib_tpu_torch.backend import prover as prover_mod
+
+    stale = [f for f in os.listdir(native.BUILD_DIR) if f.startswith(native.MODULE + "_")]
+    for f in stale:
+        os.remove(os.path.join(native.BUILD_DIR, f))
+    t = time.time()
+    so = native.build()
+    t_cc = time.time() - t
+    engine = native.get_native()
+    if (engine is None or engine.__name__ != native.MODULE
+            or os.path.dirname(engine.__file__) != native.BUILD_DIR
+            or native.get_emitter(FR_BN254.p) is None or native.get_region_mod() is not engine):
+        raise AssertionError(f"[engine] the host witness engine is not loaded: {engine}")
+    log(f"[engine] csrc/host_engine.c built by cc in {t_cc:.2f}s (earlier builds removed "
+        f"first: {len(stale)}) and loaded as {engine.__name__} from "
+        f"{os.path.relpath(so, HERE)}; the gate chips' emitter and the region hook hold it")
     if "--mesh-only" in sys.argv:
         # phase 10 alone, over every visible card (the multi-card check)
         mesh_phase(torch, np, dev)
@@ -1460,6 +1532,7 @@ def main() -> None:
         Returns the launches of the two MSM runs and of the switch runs, and
         the k=17 run's largest shapes."""
         t12 = time.time()
+        mem12 = torch.cuda.memory_allocated()
         with open(os.path.join(HERE, "tests", "data", "torch_goldens", "msm_digests.json")) as f:
             mref = json.load(f)
         seed = mref["rng_seed"]
@@ -1494,9 +1567,15 @@ def main() -> None:
                 raise AssertionError(f"{tag} the MOCK builder's {bad} differ from the JAX builder's")
             ncopies = len(circuit.copies)
             kst = {}
-            t = time.time()
-            pk_m = keygen(params_m, builder, circuit, device=dev, timings=kst)
-            st["keygen"] = time.time() - t
+            # keygen's u16 packing recorded, then packed again on the Python path
+
+            def timed_keygen():
+                t = time.time()
+                pk = keygen(params_m, builder, circuit, device=dev, timings=kst)
+                st["keygen"] = time.time() - t
+                return pk
+
+            pk_m, kpacks = packed_both_ways(prover_mod, native, np, timed_keygen)
             peak_keygen = torch.cuda.max_memory_allocated() / 2**30
             torch.cuda.reset_peak_memory_stats()
             del circuit
@@ -1538,6 +1617,9 @@ def main() -> None:
                 f"verifies, tampered proof rejected")
             log(f"{tag} setup({k}) {t_srs:.3f}s; stages (s) " + stage_line(st))
             log(f"{tag} keygen stages (s): " + stage_line(kst))
+            log(f"{tag} keygen u16 packing of {sum(p[0] for p in kpacks)} columns x "
+                f"{kpacks[0][1]}: host engine {sum(p[2] for p in kpacks):.4f}s, Python path "
+                f"{sum(p[3] for p in kpacks):.4f}s, equal limbs")
             log(f"{tag} create_proof stages (s): " + stage_line(pst))
             log(f"{tag} peak device memory: keygen {peak_keygen:.2f} GiB, create_proof "
                 f"{peak:.2f} GiB")
@@ -1636,7 +1718,13 @@ def main() -> None:
             f"bound) == golden_k9.npz; commit_dbl_add 0, bucket_sums_fused "
             f"{got_l['bucket_sums_fused']}")
         del params12, builder12, b12, pk12
-        log(f"[msm] phase 12 {time.time() - t12:.2f}s")
+        # the keys, runtimes and proofs went with their last references (no
+        # gc.collect() here): what stays is the domains' cached tables
+        held = (torch.cuda.memory_allocated() - mem12) / 2**30
+        log(f"[msm] phase 12 {time.time() - t12:.2f}s; device memory allocated "
+            f"{mem12 / 2**30:.2f} GiB before it, {held:+.2f} GiB at its end")
+        if held > 2:
+            raise AssertionError(f"[msm] phase 12 left {held:.2f} GiB allocated on the card")
         return launches["t_config"], launches["full"], switched, largest["full"]
 
     if "--msm-only" in sys.argv:
@@ -2482,6 +2570,54 @@ def main() -> None:
         f"{pipe9.groups}, one commit_dbl_add launch each on the pipeline's stream")
     log(f"[bench] phase 7 {time.time() - t7:.2f}s")
 
+    # --- 7b. the host engine against the Python path on the bench path -------------------------
+    # phase 7's plain e2e region in turns engine, Python path, Python path,
+    # engine (native.python_path: every hook of the witness and the packing
+    # on the Python path); each create_proof's _u16_cols calls recorded and
+    # packed again the other way, the limbs equal, every proof the JAX digest
+    t7b = time.time()
+    mem_7b = torch.cuda.memory_allocated() / 2**30
+
+    def engine_turn(python: bool):
+        def run():
+            with native.python_path() if python else contextlib.nullcontext():
+                r = random.Random()
+                r.setstate(erng_state)
+                st = {}
+                torch.cuda.synchronize()
+                t0 = time.time()
+                pb = epin.prover_builder()
+                ecdsa_witness(pb, ecdsa_inputs(), r)
+                st["witness"] = time.time() - t0
+                proof = create_proof(params, epk, pb, seed=0, device=dev, timings=st)
+                return proof, time.time() - t0, st
+        return packed_both_ways(prover_mod, native, np, run, python)
+
+    engine_runs = []
+    for label in ("engine", "python", "python", "engine"):
+        (proof_n, secs, st), packs = engine_turn(label == "python")
+        digest = hashlib.sha256(proof_n).hexdigest()
+        if digest != eref["proof_sha256"]:
+            raise AssertionError(f"[engine] {label}: proof sha256 {digest} != JAX")
+        # the key's runtime is cached (phase 7), so the first call packs the
+        # advice and lookup-advice columns (and the instance columns) of
+        # phase 0; each turn's packing is timed again the other way
+        ncols, n, t_engine, t_python = packs[0]
+        engine_runs.append({
+            "run": label, "e2e_s": secs, "witness_s": st["witness"],
+            "advice_u16_cols": [ncols, n], "advice_packing_engine_s": t_engine,
+            "advice_packing_python_s": t_python,
+            "all_u16_cols_engine_s": sum(p[2] for p in packs),
+            "all_u16_cols_python_s": sum(p[3] for p in packs), "stages_s": st,
+        })
+        log(f"[engine] {label}: e2e {secs:.4f}s, witness {st['witness']:.4f}s; advice "
+            f"_u16_cols ({ncols} x {n}) engine {t_engine:.4f}s, Python path {t_python:.4f}s, "
+            f"equal limbs; stages (s) " + stage_line(st))
+    log(f"[engine] 4 proofs (engine, Python path, Python path, engine) == the JAX ECDSA digest; "
+        f"phase 7b {time.time() - t7b:.2f}s; device memory {mem_7b:.2f} GiB allocated before "
+        f"it, {torch.cuda.memory_allocated() / 2**30:.2f} after")
+    log(json.dumps({"engine_runs": engine_runs}))
+
     # --- 8. the device MockProver -----------------------------------------------------------
     # the ECDSA MOCK circuit (phase 4b), the pairing MOCK circuit (phase 6),
     # each again with one advice value changed; a small circuit with a broken
@@ -2508,6 +2644,24 @@ def main() -> None:
     log(f"[mock] ECDSA k=15 ({sum(len(c) for c in ecirc.phases[0].columns)} advice cells, "
         f"{len(ecirc.copies)} copies): host MockProver {t_host_e:.3f}s, DeviceMockProver "
         f"{t_dev_e:.3f}s, both satisfied (synthesize {t_esyn:.3f}s)")
+    # the host MockProver's gate scan (backend/mock.py gate_failures, Python)
+    # against the host engine's gate-column check (NativeField, C; the JAX
+    # package's opt-in HALO2_NATIVE_MOCK path) over the same columns, in
+    # turns Python, C, C, Python: the first failing row of every column equal
+    gate_cols = [(v, s) for fp in ecirc.phases for v, s in zip(fp.columns, fp.selectors)]
+    nf = native.NativeField(FR_BN254.p)
+    gate_runs = []
+    for label in ("python", "engine", "engine", "python"):
+        t = time.time()
+        if label == "python":
+            firsts = [next(gate_failures(v, s, FR_BN254.p), (-1,))[0] for v, s in gate_cols]
+        else:
+            firsts = [nf.check_gate_column(v, s) for v, s in gate_cols]
+        gate_runs.append((label, time.time() - t))
+        if set(firsts) != {-1}:
+            raise AssertionError(f"[mock] {label} gate scan of the ECDSA circuit: {firsts}")
+    log(f"[mock] ECDSA k=15 gate scan of {len(gate_cols)} columns (first failing row of each, "
+        f"none): " + ", ".join(f"{lb} {secs:.4f}s" for lb, secs in gate_runs))
     dev_p, t_dev_p = device_mock(pcirc)
     if dev_p:
         raise AssertionError(f"pairing mock: {dev_p[:3]} (want none)")
@@ -2542,6 +2696,7 @@ def main() -> None:
         raise AssertionError(f"small circuit mock: {dev_s}, want {want_s}")
     if not MockProver(small, None).verify():
         raise AssertionError("small circuit: the host MockProver misses the failures")
+    del gate_cols
     torch.cuda.synchronize()
     launches_m = dict(cf.LAUNCHES)
     log(f"[mock] golden circuit with a broken copy and a lookup value of 2^8: {dev_s} "
@@ -2730,6 +2885,9 @@ def main() -> None:
     launches_api, largest_api = api_phase()
 
     # --- 5. every kernel at its main-path shapes: check and time ----------------------------
+    # the plain versions at the k=17 shapes take tens of GiB of temporaries
+    log(f"[timing] device memory before phase 5: {torch.cuda.memory_allocated() / 2**30:.2f} "
+        f"GiB allocated, {torch.cuda.memory_reserved() / 2**30:.2f} GiB reserved")
     def numel(shape) -> int:
         out = 1
         for d in shape:

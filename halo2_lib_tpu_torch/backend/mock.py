@@ -6,8 +6,12 @@ Host reference implementation (exact big-int) of the halo2 `MockProver`:
 - range-lookup membership in [0, 2^lookup_bits)
 - instance column consistency
 
-The port of ``halo2_lib_tpu/backend/mock.py``, without its optional native C
-column checker: the gate scan is the Python loop.
+The port of ``halo2_lib_tpu/backend/mock.py``, without its opt-in native
+column checker (``HALO2_NATIVE_MOCK``): the gate scan is the Python loop
+``gate_failures``. The host engine's check (native.py
+``NativeField.check_gate_column``) gives the same first failing row, but
+packing a column of Python ints for it costs more than the scan
+(chip_smoke.py phase 8 times both; PERF.md).
 """
 
 from __future__ import annotations
@@ -17,6 +21,22 @@ from ..gates.circuit import BaseCircuitBuilder, PhysicalCircuit
 
 class VerifyFailure(Exception):
     pass
+
+
+def gate_failures(vals: list[int], sels, p: int):
+    """(row, a, b, c, d) for each row r of one advice column where the
+    selector is on and a + b*c - d != 0 mod p (a..d the values at r..r+3;
+    rows past the column read 0)."""
+    L = len(vals)
+    for r, q in enumerate(sels):
+        if not q:
+            continue
+        a = vals[r]
+        b = vals[r + 1] if r + 1 < L else 0
+        cc = vals[r + 2] if r + 2 < L else 0
+        d = vals[r + 3] if r + 3 < L else 0
+        if (a + b * cc - d) % p != 0:
+            yield r, a, b, cc, d
 
 
 class MockProver:
@@ -55,21 +75,13 @@ class MockProver:
         # 1. vertical gate: q * (a + b*c - d) == 0
         for phase_idx, fp in enumerate(c.phases):
             for col_idx, (vals, sels) in enumerate(zip(fp.columns, fp.selectors)):
-                L = len(vals)
-                for r, q in enumerate(sels):
-                    if not q:
-                        continue
-                    a = vals[r]
-                    b = vals[r + 1] if r + 1 < L else 0
-                    cc = vals[r + 2] if r + 2 < L else 0
-                    d = vals[r + 3] if r + 3 < L else 0
-                    if (a + b * cc - d) % p != 0:
-                        errors.append(
-                            f"gate failure at phase {phase_idx} column {col_idx} row {r}: "
-                            f"{a} + {b}*{cc} != {d}"
-                        )
-                        if len(errors) > 16:
-                            return errors
+                for r, a, b, cc, d in gate_failures(vals, sels, p):
+                    errors.append(
+                        f"gate failure at phase {phase_idx} column {col_idx} row {r}: "
+                        f"{a} + {b}*{cc} != {d}"
+                    )
+                    if len(errors) > 16:
+                        return errors
 
         # 2. copy constraints by value
         def cell_value(cell) -> int:

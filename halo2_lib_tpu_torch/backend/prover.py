@@ -39,6 +39,7 @@ import numpy as np
 import torch
 
 from ..gates.circuit import BaseCircuitBuilder, PhysicalCircuit
+from ..native import get_native
 from ..ops.limbs import N_LIMBS, ints_to_limbs, limbs_to_ints
 from ..ops.ntt import NTT_CHUNK
 from ..parallel.rows import RowLayout, Rows, lag_from_u16 as _lag_from_u16
@@ -135,13 +136,20 @@ def _permute_pair(a_vals: list[int], s_vals: list[int], u: int, n: int, rng):
 
 
 def _u16_cols(cols: list[list[int]], n: int) -> np.ndarray:
-    """Host int columns -> uint16[C, n, 16] canonical limbs (the upload format)."""
+    """Host int columns -> uint16[C, n, 16] canonical limbs (the upload
+    format). Packed by the host engine's pack_limbs16 (native.py; one C call
+    where ints_to_limbs takes an int.to_bytes per full-width value), by
+    ints_to_limbs on the Python path."""
     if not cols:
         return np.zeros((0, n, N_LIMBS), dtype=np.uint16)
     flat: list[int] = []
     for c in cols:
         assert len(c) == n
         flat.extend(c)
+    nat = get_native()
+    if nat is not None:
+        buf = nat.pack_limbs16(flat)
+        return np.frombuffer(buf, dtype="<u2").reshape(len(cols), n, N_LIMBS)
     return ints_to_limbs(flat).astype(np.uint16).reshape(len(cols), n, N_LIMBS)
 
 
@@ -153,7 +161,6 @@ class ProverRuntime:
 
     def __init__(self, params: ParamsKZG, pk: ProvingKey, device, mesh=None):
         self.params = params
-        self.pk = pk
         self.mesh = mesh
         if mesh is None:
             self.layout = RowLayout(device)
@@ -287,6 +294,17 @@ def _tree_prod(df, stack, cat=torch.cat):
             red = cat([df._mont_mul(red[:1], s[-1:]), red[1:]], dim=0)
         s = red
     return s[0]
+
+
+def _map_labels(label, leaf):
+    """leaf(column label) at every leaf of a ("prod", e1, e2) lookup
+    expression. Module-level, so that create_proof's resolvers are not
+    recursive closures: a closure that refers to itself is a reference cycle,
+    and would keep the proof's columns, the key and its runtime on the
+    device until the collector runs."""
+    if isinstance(label, tuple):
+        return (label[0], _map_labels(label[1], leaf), _map_labels(label[2], leaf))
+    return leaf(label)
 
 
 def _flatten_lookup_cols(builder, t: int, nlookup: int) -> list[list[int]]:
@@ -537,9 +555,7 @@ def create_proof(
     o_lkz = o_permz + nchunks
     o_rand = o_lkz + ninst
 
-    def _src(label):
-        if isinstance(label, tuple):  # ("prod", e1, e2) expression
-            return ("prod", _src(label[1]), _src(label[2]))
+    def _src_leaf(label):
         if label.startswith("adv"):
             return ("rt", o_adv + int(label[3:]))
         if label.startswith("lkcol"):
@@ -561,6 +577,9 @@ def create_proof(
         if label == "h":
             return ("h", 0)
         return ("tbl", rt._tbl_index[label])
+
+    def _src(label):
+        return _map_labels(label, _src_leaf)
 
     inst_srcs = [([_src(lb) for lb in inp], [_src(lb) for lb in tbl]) for inp, tbl in insts]
 
@@ -653,9 +672,7 @@ def create_proof(
     theta = tr.squeeze_challenge()  # lookup input/table compression
 
     # === lookup permuted columns ===========================================
-    def _host_col(label):
-        if isinstance(label, tuple):
-            return (label[0], _host_col(label[1]), _host_col(label[2]))
+    def _host_leaf(label):
         if label.startswith("lkcol"):
             return lookup_vals[int(label[5:])]
         if label.startswith("dynen"):
@@ -669,6 +686,9 @@ def create_proof(
         if label == "table":
             return pk.table_col
         raise ValueError(label)
+
+    def _host_col(label):
+        return _map_labels(label, _host_leaf)
 
     permuted_host = []
     for inp_labels, tbl_labels in insts:

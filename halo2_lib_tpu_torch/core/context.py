@@ -19,6 +19,7 @@ from .cells import (
     _WITNESS_FRACTION,
     _CONSTANT,
 )
+from ..native import get_region_mod
 from .copy_constraints import CopyConstraintManager
 
 _tnew = tuple.__new__
@@ -107,6 +108,10 @@ class Context:
 
     def assign_region(self, inputs, gate_offsets) -> None:
         """Push cells and enable the vertical gate at relative offsets (lib.rs:310-335)."""
+        nat = get_region_mod()
+        if nat is not None and type(inputs) is list and type(gate_offsets) is list:
+            if nat.emit_region(self, inputs, gate_offsets) >= 0:
+                return
         if self.witness_gen_only:
             for input in inputs:
                 self.assign_cell(input)

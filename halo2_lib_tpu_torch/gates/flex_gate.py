@@ -23,6 +23,7 @@ from ..core.cells import (
     _CONSTANT,
 )
 from ..core.context import Context
+from ..native import get_emitter
 from ..utils.fields import PrimeField
 from ..utils.misc import decompose_fe_to_u64_limbs
 
@@ -118,6 +119,11 @@ class GateChip:
         """
         assert len(a) == len(b)
         F = self.F
+        em = get_emitter(F.p)
+        if em is not None:
+            r = em.inner_product(ctx, a, b)
+            if r >= 0:
+                return bool(r)
         b_starts_with_one = bool(b) and b[0].kind == _CONSTANT and b[0].val == 1
         cells: list[QCell] = []
         if b_starts_with_one:

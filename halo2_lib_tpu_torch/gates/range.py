@@ -11,6 +11,7 @@ from __future__ import annotations
 from ..core.cells import AssignedValue, Constant, Existing, Witness, as_qcell, qcell_value
 from ..core.context import Context
 from ..core.lookups import LookupAnyManager
+from ..native import get_emitter
 from ..utils.misc import bit_length, decompose_fe_to_u64_limbs
 from .flex_gate import MAX_PHASE, GateChip
 
@@ -59,20 +60,31 @@ class RangeChip:
             self._add_cell_to_lookup(ctx, a)
             last_limb = a
         else:
-            limbs = decompose_fe_to_u64_limbs(a.val(), num_limbs, lb)
-            row_offset = len(ctx.advice)
-            acc = self.gate.inner_product(
-                ctx, [Witness(x) for x in limbs], self.limb_bases[:num_limbs]
-            )
-            ctx.constrain_equal(a, acc)
-            # limb cells at offsets 0, 1, 4, ..., 1+3i (limb_bases[0]==1 opt)
-            get = ctx.get
-            rows = [(get(row_offset),)]
-            rows.extend(
-                (get(row_offset + 1 + 3 * i),) for i in range(num_limbs - 1)
-            )
-            self.lookup_manager[ctx.phase].add_lookups(ctx.tag(), rows)
-            last_limb = ctx.get(row_offset + 1 + 3 * (num_limbs - 2))
+            last_limb = None
+            em = get_emitter(self.F.p)
+            if em is not None:
+                # one C call: decompose + inner-product region + a == acc
+                # copy + lookup rows (the witness-gen hot path)
+                lm = self.lookup_manager[ctx.phase]
+                rows_list = lm.cells_to_lookup.setdefault(ctx.tag(), [])
+                last_limb = em.range_check(
+                    ctx, a, self.limb_bases[:num_limbs], num_limbs, lb, rows_list
+                )
+            if last_limb is None:
+                limbs = decompose_fe_to_u64_limbs(a.val(), num_limbs, lb)
+                row_offset = len(ctx.advice)
+                acc = self.gate.inner_product(
+                    ctx, [Witness(x) for x in limbs], self.limb_bases[:num_limbs]
+                )
+                ctx.constrain_equal(a, acc)
+                # limb cells at offsets 0, 1, 4, ..., 1+3i (limb_bases[0]==1 opt)
+                get = ctx.get
+                rows = [(get(row_offset),)]
+                rows.extend(
+                    (get(row_offset + 1 + 3 * i),) for i in range(num_limbs - 1)
+                )
+                self.lookup_manager[ctx.phase].add_lookups(ctx.tag(), rows)
+                last_limb = ctx.get(row_offset + 1 + 3 * (num_limbs - 2))
 
         if rem_bits == 1:
             self.gate.assert_bit(ctx, last_limb)

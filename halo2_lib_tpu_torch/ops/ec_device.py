@@ -47,8 +47,6 @@ class DeviceCurve:
         assert df.fid == cf.FQ, "the EC kernels are specialised to bn254 G1 over Fq"
         self.df = df
         self.curve = curve
-        self.add = self._add
-        self.double = self._double
 
     def _add(self, P1, P2):
         """Complete add (ec_add kernel)."""
@@ -57,6 +55,8 @@ class DeviceCurve:
     def _double(self, P):
         """Jacobian doubling (ec_double kernel)."""
         return cf.ec_double(P)
+
+    add, double = _add, _double
 
     def _madd(self, P1, A2, distinct: bool):
         """Jacobian P1 + affine A2 ((0, 0) = identity) (ec_madd kernel);

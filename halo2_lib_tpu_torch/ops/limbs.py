@@ -94,11 +94,6 @@ class DeviceField:
         self.R = (1 << 256) % p
         self.R2 = _int_to_limbs((self.R * self.R) % p)
         self.ONE_MONT = _int_to_limbs(self.R)
-        # the JAX package's jitted aliases; here the same eager functions
-        self.add, self.sub, self.neg, self.double = self._add, self._sub, self._neg, self._double
-        self.mont_mul, self.square = self._mont_mul, self._square
-        self.to_mont, self.from_mont = self._to_mont, self._from_mont
-        self.inv, self.batch_inv = self._inv, self._batch_inv
         self._pow_cache: dict[int, list[bool]] = {}
 
     # --- host <-> device packing ------------------------------------------------
@@ -197,6 +192,12 @@ class DeviceField:
         suffix_exc = torch.cat([suffix_inc[..., 1:], one[..., :1]], dim=-1)
         invs = self._mont_mul(self._mont_mul(prefix_exc, suffix_exc), inv_total)
         return torch.where(is_zero[..., None, :], torch.zeros_like(invs), invs)
+
+    # the JAX package's jitted aliases; here the same eager functions (on the
+    # class: bound methods kept on the instance would be a reference cycle)
+    add, sub, neg, double = _add, _sub, _neg, _double
+    mont_mul, square, to_mont, from_mont = _mont_mul, _square, _to_mont, _from_mont
+    inv, batch_inv = _inv, _batch_inv
 
     # --- predicates ------------------------------------------------------------------
     @staticmethod

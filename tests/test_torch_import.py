@@ -1,6 +1,6 @@
 """The port stands alone: it imports neither jax, nor the JAX package, nor
-the native C engine, and runs keygen -> create_proof -> verify_proof with
-jax made unimportable."""
+the JAX package's native C engine, and runs keygen -> create_proof ->
+verify_proof with jax made unimportable, through its own host engine."""
 
 import ast
 import os
@@ -71,6 +71,13 @@ def test_parallel_modules_and_root_scripts_are_walked():
         assert rel in walked, rel
 
 
+def test_host_engine_loader_is_walked():
+    """The host engine's loader is among the files the import check walks
+    (the jax-free run below loads and counts the engine)."""
+    walked = {os.path.relpath(f, ROOT) for f in _port_files()}
+    assert "halo2_lib_tpu_torch/native.py" in walked
+
+
 def test_ntt_mxu_module_and_probe_are_walked():
     """The digit-plane DFT NTT and its probe script are among the files the
     import check walks (the jax-free run below loads the module too)."""
@@ -80,12 +87,17 @@ def test_ntt_mxu_module_and_probe_are_walked():
 
 def test_k8_prove_without_jax(tmp_path_factory):
     """keygen -> create_proof -> verify_proof with jax, the JAX package and
-    the native engine unimportable (the instance-column circuit at k=9,
-    whose bytes test_torch_instances.py holds against the JAX goldens)."""
+    the JAX package's native engine unimportable (the instance-column
+    circuit at k=9, whose bytes test_torch_instances.py holds against the
+    JAX goldens), the port's own engine emitting its regions and packing its
+    columns."""
     run = jaxfree_instance_run(tmp_path_factory)
     assert "error" not in run, run.get("error")
     assert run["verifies"] and not run["verifies_wrong_instances"]
     assert run["loaded"] == []
+    assert run["engine"] == "h2t_host_engine" and "halo2_native" in FORBIDDEN
+    assert run["engine_dir"] == os.path.join("halo2_lib_tpu_torch", "_build")
+    assert run["engine_calls"]["emit_region"] > 0 and run["engine_calls"]["pack_limbs16"] > 0
 
 
 def test_msm_and_prover_check_modules_are_walked():

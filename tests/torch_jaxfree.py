@@ -1,10 +1,13 @@
 """One run of the port with jax made unimportable, shared by the tests that
 need it (test_torch_import.py, test_torch_instances.py).
 
-A subprocess, in which jax, the JAX package and the native engine cannot be
-imported, takes the instance-column circuit at k=9 through keygen ->
-create_proof -> verify_proof on the CPU and reports the vk and proof bytes,
-the verdicts and any forbidden module that got loaded. Under pytest-xdist the
+A subprocess, in which jax, the JAX package and the JAX package's native
+engine cannot be imported, takes the instance-column circuit at k=9 through
+keygen -> create_proof -> verify_proof on the CPU and reports the vk and
+proof bytes, the verdicts, any forbidden module that got loaded, how
+often the port's own host engine (native.py, built into _build/) emitted a
+region and packed columns on the way, and the port's objects and tensors
+that the run left in reference cycles (the collector is off throughout). Under pytest-xdist the
 report is cached in the session's shared temporary directory behind a file
 lock, so the parallel workers pay for one run.
 """
@@ -20,7 +23,8 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FORBIDDEN = ("jax", "jaxlib", "halo2_lib_tpu", "halo2_native")
 
 SCRIPT = r"""
-import json, sys
+import gc, json, sys
+gc.disable()  # what the run leaves in reference cycles is read at the end
 for m in FORBIDDEN:
     sys.modules[m] = None
 sys.path.insert(0, ROOT)
@@ -40,21 +44,45 @@ import halo2_lib_tpu_torch.parallel, halo2_lib_tpu_torch.parallel.distributed
 import halo2_lib_tpu_torch.ops.ntt_mxu
 exports = [getattr(h2, name) for name in ("base_test", "keygen", "create_proof", "verify_proof")]
 
+# the port's host engine, its calls counted (the hooks look them up per call)
+import os
+from halo2_lib_tpu_torch import native
+engine = native.get_native()
+engine_calls = {"emit_region": 0, "pack_limbs16": 0}
+def counted(name, fn):
+    def call(*args):
+        engine_calls[name] += 1
+        return fn(*args)
+    return call
+for name in engine_calls:
+    setattr(engine, name, counted(name, getattr(engine, name)))
+
 params = ParamsKZG.read(ROOT + "/params/kzg_bn254_9.srs", device="cpu")
 builder, inst = instance_circuit()
 pk = keygen(params, builder, device="cpu")
 builder, inst = instance_circuit()
 proof = create_proof(params, pk, builder, instances=inst, seed=0, device="cpu")
 wrong = [[inst[0][0], (inst[0][1] + 1) % FR_BN254.p]]
-print(json.dumps({
+report = {
     "vk": pk.vk.to_bytes().hex(),
     "proof": proof.hex(),
     "verifies": verify_proof(params, pk.vk, proof, inst),
     "verifies_wrong_instances": verify_proof(params, pk.vk, proof, wrong),
+    "engine": engine.__name__,
+    "engine_dir": os.path.relpath(os.path.dirname(engine.__file__), ROOT),
+    "engine_calls": engine_calls,
     "loaded": sorted(
         m for m in sys.modules if m.split(".")[0] in FORBIDDEN and sys.modules[m] is not None
     ),
-}))
+}
+del params, builder, inst, pk, proof, wrong
+gc.set_debug(gc.DEBUG_SAVEALL)
+gc.collect()
+report["left_to_collector"] = sorted({
+    type(o).__qualname__ for o in gc.garbage
+    if isinstance(o, torch.Tensor) or type(o).__module__.startswith("halo2_lib")
+})
+print(json.dumps(report))
 """
 
 
